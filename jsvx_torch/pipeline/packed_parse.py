@@ -1,0 +1,230 @@
+"""Host front end of the compact wire: header walk and per-GOP parse.
+
+JAX-free copies of what the compact path needs from
+``jsvx/pipeline/packed_parse.py`` and ``jsvx/pipeline/parallel_parse.py``
+(whose package imports JAX).  The C++ parser (``jsvx.bitstream.native``)
+writes each picture's coded coefficients, one uint16 entry each, and the
+per-macroblock sideband; :func:`parse_gop_compact` concatenates a GOP's
+entries into one bucket-padded array per component.  The port's decode
+kernel reads per-block motion vectors directly, so no distinct-vector
+table is built (the JAX package's ``mv_capacity=0``).
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from jsvx.bitstream.bitio import BitReader
+from jsvx.bitstream.container import StartCodeIndex, parse_container_header
+from jsvx.bitstream.native import get_native_parser
+from jsvx.bitstream.parser import StreamParser, alloc_frame_tensors
+from jsvx.coding import tables as T
+
+from ..kernels.decode import COMP_KEYS
+
+
+class BufferPool:
+    """Reusable host-array pool keyed by (shape, dtype).
+
+    Release a buffer only once nothing reads it any more: after its
+    device copy is complete, or, on the CPU device, after a clone.
+    """
+
+    def __init__(self):
+        self._free: dict = {}
+        self._lock = threading.Lock()
+
+    def acquire(self, shape: tuple, dtype) -> np.ndarray:
+        key = (tuple(shape), np.dtype(dtype).str)
+        with self._lock:
+            lst = self._free.get(key)
+            if lst:
+                return lst.pop()
+        return np.empty(shape, dtype)
+
+    def release(self, arr: np.ndarray) -> None:
+        key = (arr.shape, arr.dtype.str)
+        with self._lock:
+            self._free.setdefault(key, []).append(arr)
+
+
+def _parse_picture_header(parser: StreamParser, r: BitReader):
+    """Picture-header fields + FrameTensors stub (serial part)."""
+    seq = parser.seq
+    temporal_ref = r.get_bits(10)
+    ptype = r.get_bits(3)
+    r.advance(16)
+    if ptype <= 0 or ptype >= T.PICTURE_TYPE_B:
+        return None, 0
+    full_pel = False
+    f_code = 0
+    if ptype == T.PICTURE_TYPE_P:
+        full_pel = bool(r.get_bits(1))
+        f_code = r.get_bits(3)
+        if f_code == 0:
+            return None, 0
+    ft = alloc_frame_tensors(seq, ptype, temporal_ref, full_pel, f_code,
+                             parser._pending_gop_time
+                             if parser._have_pending_gop else 0.0,
+                             yuva=parser.yuva)
+    parser._have_pending_gop = False
+    return ft, r.bit_pos
+
+
+def _picture_end(index: StartCodeIndex, from_byte: int, eos: int) -> int:
+    entries = index.entries
+    i = int(np.searchsorted(entries[:, 0], from_byte))
+    skip = (T.START_EXTENSION, T.START_USER_DATA)
+    while i < len(entries):
+        code = int(entries[i, 1])
+        if not (T.START_SLICE_FIRST <= code <= T.START_SLICE_LAST
+                or code in skip):
+            return int(entries[i, 0])
+        i += 1
+    return eos
+
+
+def walk_stream(data: bytes):
+    """Serial header walk: (meta, seq, groups) where ``groups[g]`` is the
+    list of (picture-header FrameTensors stub, start_bit) of GOP g."""
+    data = bytes(data)
+    r = BitReader(data)
+    meta = parse_container_header(r)
+    index = StartCodeIndex.scan(data)
+    parser = StreamParser(use_native=False)
+    parser.yuva = meta.yuva
+    groups: list[list] = []
+    pos = r.byte_pos
+    while True:
+        nxt = index.next_code(pos)
+        if nxt is None:
+            break
+        off, code = nxt
+        rr = BitReader(data, pos_bits=(off + 4) << 3)
+        if code == T.START_SEQUENCE:
+            parser.parse_sequence_header(rr)
+            pos = rr.byte_pos
+        elif code == T.START_GOP:
+            parser.parse_gop_header(rr)
+            groups.append([])
+            pos = rr.byte_pos
+        elif code == T.START_PICTURE:
+            hdr, start_bit = _parse_picture_header(parser, rr)
+            if hdr is None:
+                pos = rr.byte_pos
+                continue
+            if not groups:
+                groups.append([])
+            groups[-1].append((hdr, start_bit))
+            pos = _picture_end(index, rr.byte_pos, len(data))
+        else:
+            pos = off + 4
+    return meta, parser.seq, [g for g in groups if g]
+
+
+@dataclass
+class CompactGop:
+    """One GOP in the compact coefficient wire format: ``stacked`` is the
+    dict that goes to the device, ``pooled`` the pool buffers it holds,
+    ``dirty`` whether the stream emitted blocks out of order (the compact
+    wire cannot express that GOP)."""
+
+    stacked: dict
+    hdrs: list
+    pooled: list = field(default_factory=list)
+    dirty: bool = False
+
+
+def coef_bucket(n: int) -> int:
+    """Entry-capacity bucket for the compact wire: 1.25x geometric steps,
+    8192-entry aligned, so a stream sees a handful of wire layouts."""
+    b = 1 << 14
+    while b < n:
+        b = -(-(b + b // 4) // 8192) * 8192
+    return b
+
+
+def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
+                      pool: BufferPool, buckets: dict,
+                      n_threads: int | None = None) -> CompactGop:
+    """Parse one GOP into the compact wire format.
+
+    ``buckets`` maps component key -> sticky entry-capacity bucket; it is
+    grown in place so successive GOPs keep stable shapes.
+    """
+    native = get_native_parser()
+    if native is None:
+        raise RuntimeError("compact parse requires the C++ parser")
+    n_comps = meta.n_components
+    mb_h, mb_w = seq.mb_height, seq.mb_width
+    n = len(group)
+    nblk = [mb_h * mb_w * 4, mb_h * mb_w, mb_h * mb_w,
+            mb_h * mb_w * 4][:n_comps]
+
+    counts = [np.zeros((n, nblk[c]), np.uint8) for c in range(n_comps)]
+    mb_quant = np.ones((n, mb_h, mb_w), np.uint8)
+    mb_intra = np.zeros((n, mb_h, mb_w), np.uint8)
+    mb_mv = np.zeros((n, mb_h, mb_w, 2), np.int16)
+    mb_rep_add = np.zeros((n, mb_h, mb_w), np.uint8)
+
+    # per-frame scratch is worst-case sized (nblk * 64 entries) but
+    # pooled; only the bucket-padded concatenation crosses the wire
+    scratch = [[pool.acquire((nblk[c] * 64,), np.uint16)
+                for c in range(n_comps)] for _ in range(n)]
+    ns = [None] * n
+    dirty = [False] * n
+
+    def run(i):
+        hdr, start_bit = group[i]
+        ns[i], dirty[i] = native.parse_picture_compact(
+            arr, start_bit, hdr, mb_w, mb_h, n_comps == 4,
+            tuple(scratch[i]) + (None,) * (4 - n_comps),
+            tuple(counts[c][i] for c in range(n_comps))
+            + (None,) * (4 - n_comps),
+            mb_quant[i], mb_intra[i], mb_mv[i], mb_rep_add[i],
+            n_threads=1)
+
+    if n_threads == 1 or n == 1:
+        for i in range(n):
+            run(i)
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=n_threads) as tp:
+            list(tp.map(run, range(n)))
+
+    hdrs = [hdr for hdr, _ in group]
+    out = dict(
+        is_p=np.array([0 if h.picture_type == 1 else 1 for h in hdrs],
+                      np.int32),
+        f_code=np.array([h.f_code for h in hdrs], np.int32),
+    )
+    out["mb"] = dict(q=mb_quant, intra=mb_intra, rep_add=mb_rep_add,
+                     mv=mb_mv)
+
+    coef = {}
+    pooled = []
+    for c in range(n_comps):
+        key = COMP_KEYS[c]
+        total = sum(int(ns[i][c]) for i in range(n))
+        bucket = max(buckets.get(key, 0), coef_bucket(total))
+        buckets[key] = bucket
+        wire = pool.acquire((bucket,), np.uint16)
+        off = 0
+        for i in range(n):
+            cnt = int(ns[i][c])
+            wire[off:off + cnt] = scratch[i][c][:cnt]
+            off += cnt
+        coef[key] = dict(cpk=wire, n=np.int32(total), counts=counts[c])
+        pooled.append(wire)
+    out["coef"] = coef
+    # scratch is host-side only (already concatenated): recycle now; the
+    # wire buffers in `pooled` recycle once the device copy is complete
+    for row in scratch:
+        for s in row:
+            pool.release(s)
+    return CompactGop(stacked=out, hdrs=hdrs, pooled=pooled,
+                      dirty=any(dirty))

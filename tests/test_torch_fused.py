@@ -1,0 +1,150 @@
+"""The fused decode kernel's wrapper, build command and JAX-free import.
+
+On the CPU the wrapper runs the kernel's plain version; the kernel itself
+(CUDA C++ for sm_90a) runs only on a card, in the ``cuda``-marked test
+and in ``chip_smoke.py``.  On a machine with a card and without JAX:
+``python -m pytest tests/test_torch_fused.py -m cuda --noconftest``
+(``tests/conftest.py`` imports JAX; this file needs none of it).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from jsvx_torch.kernels import build, fused
+from jsvx_torch.kernels.decode import (decode_frame_plane,
+                                       decode_frame_planes, make_constants)
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _plane_inputs(h, w, seed):
+    """Random per-block grids of one plane: dense levels, out-of-picture
+    vectors, intra and intra-in-P blocks, partial scan ranges."""
+    rng = np.random.default_rng(seed)
+    hb, wb = h // 8, w // 8
+    lv = rng.integers(-300, 300, (h, w)) * (rng.random((h, w)) < 0.3)
+    c = dict(levels=lv.astype(np.int16),
+             lnz=rng.integers(0, 65, (hb, wb)).astype(np.uint8),
+             q=rng.integers(1, 32, (hb, wb)).astype(np.uint8),
+             intra=(rng.random((hb, wb)) < 0.3).astype(np.uint8),
+             mv=rng.integers(-70, 70, (hb, wb, 2)).astype(np.int16),
+             rep_add=(rng.random((hb, wb)) < 0.1).astype(np.uint8))
+    ref = rng.integers(0, 256, (h, w)).astype(np.uint8)
+    return c, ref
+
+
+def _on(c, ref, device):
+    return ({k: torch.from_numpy(v).to(device) for k, v in c.items()},
+            torch.from_numpy(ref).to(device))
+
+
+CASES = [(h, w, chroma, is_p, quirk)
+         for h, w, chroma in ((48, 64, False), (24, 40, True))
+         for is_p in (0, 1) for quirk in (False, True)]
+
+
+@pytest.mark.parametrize("h,w,chroma,is_p,quirk", CASES)
+def test_wrapper_on_cpu_is_the_plain_version(h, w, chroma, is_p, quirk):
+    c, ref = _plane_inputs(h, w, seed=h + w + is_p)
+    tc, tref = _on(c, ref, "cpu")
+    consts = make_constants(None, "cpu")
+    ip = torch.tensor(is_p, dtype=torch.int32)
+    before = fused.launches
+    got = fused.fused_decode_plane(tc, tref, ip, consts, chroma, quirk)
+    out = torch.full((h, w), 7, dtype=torch.uint8)
+    got_out = fused.fused_decode_plane(tc, tref, ip, consts, chroma, quirk,
+                                       out=out)
+    want = decode_frame_plane(tc, tref, ip, consts, chroma, quirk)
+    assert fused.launches == before
+    assert got.dtype == torch.uint8 and got.shape == (h, w)
+    assert torch.equal(got, want)
+    assert got_out is out and torch.equal(out, want)
+
+
+def test_frame_planes_on_cpu():
+    c0, r0 = _plane_inputs(48, 64, 1)
+    c1, r1 = _plane_inputs(24, 32, 2)
+    c2, r2 = _plane_inputs(24, 32, 3)
+    frame = {"is_p": torch.tensor(1, dtype=torch.int32)}
+    refs = []
+    for key, (c, r) in zip(("y", "cb", "cr"), ((c0, r0), (c1, r1),
+                                                (c2, r2))):
+        frame[key], ref = _on(c, r, "cpu")
+        refs.append(ref)
+    consts = make_constants(None, "cpu")
+    got = fused.decode_frame_planes_fused(frame, tuple(refs), consts)
+    want = decode_frame_planes(frame, tuple(refs), consts)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_wrapper_rejects_other_devices():
+    c, ref = _plane_inputs(16, 16, 4)
+    tc, tref = _on(c, ref, "meta")
+    with pytest.raises(ValueError, match="no fused decode kernel"):
+        fused.fused_decode_plane(tc, tref, torch.zeros((), dtype=torch.int32,
+                                                       device="meta"),
+                                 make_constants(None, "meta"), False)
+
+
+def test_nvcc_command_targets_hopper_without_fma():
+    cmd = build.nvcc_command(["k.cu"], "lib.so")
+    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "-fmad=false" in cmd
+    assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
+    assert cmd[cmd.index("-o") + 1] == "lib.so" and cmd[-1] == "k.cu"
+    assert all(os.path.exists(os.path.join(build.CSRC, s))
+               for s in build.SOURCES)
+    assert build.BUILD_ROOT == os.path.join(REPO, "build", "jsvx_torch")
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    consts = make_constants(None, "cuda")
+    for h, w, chroma, is_p, quirk in CASES + [(1088, 1920, False, 1, False),
+                                              (544, 960, True, 1, False)]:
+        c, ref = _plane_inputs(h, w, seed=h * w + is_p)
+        tc, tref = _on(c, ref, "cuda")
+        ip = torch.tensor(is_p, dtype=torch.int32, device="cuda")
+        before = fused.launches
+        got = fused.fused_decode_plane(tc, tref, ip, consts, chroma, quirk)
+        want = decode_frame_plane(tc, tref, ip, consts, chroma, quirk)
+        torch.cuda.synchronize()
+        assert fused.launches == before + 1
+        assert torch.equal(got, want), (h, w, chroma, is_p, quirk)
+
+
+def test_port_never_imports_jax():
+    """Importing the port and decoding a clip on the CPU loads no JAX
+    (the card's machine has none)."""
+    code = """
+import sys
+import numpy as np
+import jsvx_torch
+from jsvx_torch.pipeline.transcode import transcode
+from jsvx.tools.encoder import EncoderConfig, JsvEncoder
+yy, xx = np.mgrid[0:32, 0:48]
+frames = [((96 + 40 * np.sin((xx + 2 * t) / 5.0)).astype(np.uint8),
+           np.full((16, 24), 120, np.uint8), np.full((16, 24), 130, np.uint8))
+          for t in range(4)]
+data = JsvEncoder(48, 32, EncoderConfig(gop_size=2)).encode(frames)
+res = jsvx_torch.transcode(data, device="cpu")
+assert res.n_frames == 4, res
+assert "jax" not in sys.modules, "jax was imported"
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -1,0 +1,224 @@
+"""The port's compact-wire pipeline (jsvx_torch.pipeline) vs jsvx.
+
+Parse, wire and expansion are integer and must be bit-equal to jsvx.  The
+end-to-end decode runs the port on the CPU (its plain decode) against
+jsvx ``transcode(impl="xla")``: <= 1 LSB, and at most 0.1 % of the
+stream's pixels may differ (a rounding tie flipped by the IDCT's f32
+summation order is copied into the P frames that predict from it; the
+count is printed); and <= 1 LSB of the float64 oracle.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from jsvx.bitstream.native import get_native_parser
+from jsvx.coding import tables as T
+from jsvx.kernels.expand import expand_compact_gop as j_expand_gop
+from jsvx.kernels.expand import expand_levels as j_expand_levels
+from jsvx.pipeline import packed_parse as jpp
+from jsvx.pipeline import wire as jwire
+from jsvx.pipeline.transcode import transcode as j_transcode
+from jsvx.tools.encoder import EncoderConfig, JsvEncoder
+from jsvx.tools.oracle import decode_stream_oracle
+from jsvx_torch.kernels.expand import expand_compact_gop, expand_levels
+from jsvx_torch.pipeline import packed_parse as tpp
+from jsvx_torch.pipeline import wire as twire
+from jsvx_torch.pipeline.transcode import transcode
+
+from conftest import synthetic_frames, synthetic_frames_yuva
+from test_high_motion import MB, _forced_mvs
+
+pytestmark = pytest.mark.skipif(get_native_parser() is None,
+                                reason="no C++ parser")
+
+torch.set_num_threads(1)
+
+
+class _ZeroPool(tpp.BufferPool):
+    """Pool whose fresh buffers are zeroed, so bucket padding is equal
+    bytes in both packages' wires."""
+
+    def acquire(self, shape, dtype):
+        return np.zeros(shape, dtype)
+
+
+def _encode(clip, **kw):
+    h, w = clip[0][0].shape
+    return JsvEncoder(w, h, EncoderConfig(**kw)).encode(clip)
+
+
+@pytest.fixture(scope="module", params=["yuv", "yuva"])
+def stream(request):
+    make = synthetic_frames_yuva if request.param == "yuva" \
+        else synthetic_frames
+    return _encode(make(10, 64, 96, seed=5), gop_size=5, quantizer_scale=6,
+                   me_range=8, half_pel_refine=True)
+
+
+def _wires(data):
+    """(jsvx stacked, jsvx wire, port stacked, port wire, spec) per GOP."""
+    arr = np.frombuffer(data, np.uint8)
+    jm, js, jg = jpp.walk_stream(data)
+    tm, ts, tg = tpp.walk_stream(data)
+    assert len(jg) == len(tg) and jm.n_components == tm.n_components
+    jb, tb = {}, {}
+    out = []
+    for gi in range(len(tg)):
+        jgop = jpp.parse_gop_compact(arr, jg[gi], js, jm, _ZeroPool(), jb,
+                                     0, index=gi)
+        tgop = tpp.parse_gop_compact(arr, tg[gi], ts, tm, _ZeroPool(), tb)
+        assert not jgop.dirty and not tgop.dirty
+        jspec = jwire.wire_spec(jgop.stacked)
+        tspec = twire.wire_spec(tgop.stacked)
+        assert tspec == jspec
+        # zeroed buffers: the alignment gaps between leaves are equal too
+        out.append((jgop.stacked,
+                    jwire.flatten_wire(jgop.stacked, jspec,
+                                       out=np.zeros(jspec[1], np.uint8)),
+                    tgop.stacked,
+                    twire.flatten_wire(tgop.stacked, tspec,
+                                       out=np.zeros(tspec[1], np.uint8)),
+                    tspec))
+    return ts, out
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def test_wire_bytes_identical(stream):
+    _, gops = _wires(stream)
+    assert len(gops) == 2
+    for _, jbuf, _, tbuf, _ in gops:
+        assert jbuf.dtype == tbuf.dtype == np.uint8
+        assert np.array_equal(jbuf, tbuf)
+
+
+def test_unflatten_wire_leaves_equal(stream):
+    for _, jbuf, _, tbuf, spec in _wires(stream)[1]:
+        want = dict(_leaves(jwire.unflatten_wire(jnp.asarray(jbuf), spec)))
+        got = dict(_leaves(twire.unflatten_wire(torch.from_numpy(tbuf),
+                                                spec)))
+        assert want.keys() == got.keys()
+        for path, g in got.items():
+            w = np.asarray(want[path])
+            assert g.shape == w.shape, path
+            assert np.array_equal(g.numpy(), w), path
+        assert got[("coef", "y", "cpk")].dtype == torch.uint16
+        assert got[("coef", "y", "n")].shape == ()
+
+
+def test_expand_compact_gop_bit_equal(stream):
+    seq, gops = _wires(stream)
+    for jstacked, _, tstacked, tbuf, spec in gops:
+        want = dict(_leaves(j_expand_gop(jstacked, seq.mb_height,
+                                         seq.mb_width)))
+        got = dict(_leaves(expand_compact_gop(
+            twire.unflatten_wire(torch.from_numpy(tbuf), spec),
+            seq.mb_height, seq.mb_width)))
+        assert want.keys() == got.keys()
+        for path, g in got.items():
+            w = np.asarray(want[path])
+            assert g.shape == w.shape and g.numpy().dtype == w.dtype, path
+            assert np.array_equal(g.numpy(), w), path
+        assert got[("y", "levels")].abs().sum() > 0
+
+
+@pytest.mark.parametrize("luma_like", [True, False])
+def test_expand_levels_padding_is_dropped(luma_like):
+    """Entries past n_coef go to the sacrificial slot, and a last block
+    that ends exactly at the buffer's end is dropped from the rank."""
+    n_blocks = 4 if luma_like else 1
+    zz = int(T.ZIG_ZAG[5])                 # wire carries SPATIAL positions
+    cases = [(8, 1), (3, 3)]               # (entries, coded) per case
+    for n_ent, n_coef in cases:
+        counts = np.zeros((1, n_blocks), np.uint8)
+        counts[0, -1] = n_coef
+        cpk = np.full((n_ent,), (zz << 10) | (7 + 512), np.uint16)
+        want = np.asarray(j_expand_levels(
+            jnp.asarray(cpk), jnp.int32(n_coef), jnp.asarray(counts), 1, 1,
+            luma_like))
+        got = expand_levels(torch.from_numpy(cpk),
+                            torch.tensor(n_coef, dtype=torch.int32),
+                            torch.from_numpy(counts), 1, 1,
+                            luma_like).numpy()
+        assert np.array_equal(got, want)
+        assert got.sum() == 7              # one write: same position
+        assert got.shape == ((1, 16, 16) if luma_like else (1, 8, 8))
+
+
+def _collect(run):
+    got = {}
+    run(lambda gi, outs: got.__setitem__(
+        gi, [np.asarray(o.numpy() if isinstance(o, torch.Tensor) else o)
+             .copy() for o in outs]))
+    return [tuple(s[i] for s in got[g]) for g in sorted(got)
+            for i in range(got[g][0].shape[0])]
+
+
+def _transcode_vs_jsvx_and_oracle(data, label):
+    port = _collect(lambda sink: transcode(data, sink, device="cpu"))
+    ref = _collect(lambda sink: j_transcode(data, sink, impl="xla"))
+    oracle = decode_stream_oracle(data)
+    assert len(port) == len(ref) == len(oracle)
+    n_diff = n_pix = 0
+    for fp, fr, fo in zip(port, ref, oracle):
+        assert len(fp) == len(fr)
+        for p, r, o in zip(fp, fr, fo.planes):
+            assert p.dtype == np.uint8 and p.shape == r.shape
+            diff = np.abs(p.astype(int) - r.astype(int))
+            assert diff.max() <= 1
+            n_diff += int((diff > 0).sum())
+            n_pix += diff.size
+            assert np.abs(p.astype(int) - o.astype(int)).max() <= 1
+    print(f"{label}: {n_diff} of {n_pix} pixels differ from jsvx")
+    assert n_diff <= 1e-3 * n_pix
+
+
+def test_transcode_cpu_vs_jsvx(stream):
+    _transcode_vs_jsvx_and_oracle(stream, "64x96")
+
+
+def test_transcode_high_motion_vs_jsvx():
+    """A P frame with 256 distinct vectors (above jsvx's 255 table cap):
+    the port's kernel reads per-block vectors and has no cap."""
+    frames = synthetic_frames(4, MB * 16, MB * 16, seed=11)
+    enc = JsvEncoder(MB * 16, MB * 16, EncoderConfig(
+        gop_size=2, quantizer_scale=8, f_code=3, intra_sad_threshold=1e9,
+        key_map=True))
+    calls = []
+
+    def forced(y, ref_y):
+        calls.append(len(calls))
+        return _forced_mvs(calls[-1])
+
+    enc._motion_search = forced
+    data = enc.encode(frames)
+    arr = np.frombuffer(data, np.uint8)
+    meta, seq, groups = tpp.walk_stream(data)
+    g = tpp.parse_gop_compact(arr, groups[1], seq, meta, tpp.BufferPool(),
+                              {})
+    mv = g.stacked["mb"]["mv"][1].reshape(-1, 2)
+    assert len(np.unique(mv, axis=0)) >= 256
+    _transcode_vs_jsvx_and_oracle(data, "high-motion")
+
+
+def test_transcode_result_and_metrics(stream):
+    res = transcode(stream, device="cpu")
+    assert res.n_frames == 10 and res.n_gops == 2
+    stages = res.metrics.to_dict()["stages"]
+    assert {"parse", "h2d", "device_decode"} <= stages.keys()
+    assert res.metrics.counters["frames"] == 10
+    assert res.metrics.gauges["wire_bytes"] > 0
+
+
+def test_transcode_quirk_not_ported(stream):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        transcode(stream, device="cpu", quirk_oddify_zeros=True)
