@@ -3,22 +3,29 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper card
-(the kernel is built for sm_90a with ``nvcc`` at first use).  Phases, each
-printing its own lines:
+(the kernels are built for sm_90a with ``nvcc`` at first use).  Phases,
+each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. the build of ``jsvx_torch/csrc/`` into ``build/jsvx_torch/``;
-3. the fused decode kernel against its plain PyTorch version on the same
-   CUDA tensors, required bit-equal (0 differing pixels): every frame and
-   plane of GOP 0 of the 1080p bench fixture, one frame with the
-   oddify-zeros quirk, and a 320x320 stream with 256 distinct motion
-   vectors in one P frame;
-4. the slice end to end: ``jsvx_torch.transcode`` of the 1080p fixture on
-   the card (the kernel must launch once per frame and plane), bit-equal
-   to the same call on the CPU; and CIF and YUVA streams within 1 LSB of
-   the float64 oracle;
+3. each kernel against its plain PyTorch version on the same CUDA
+   tensors, required bit-equal (0 differing pixels): the fused decode
+   kernel, and the MC and reconstruction kernels of the two-kernel route,
+   on every frame and plane of GOP 0 of the 1080p bench fixture, one frame
+   with the oddify-zeros quirk, and both GOPs of a 320x320 stream with 256
+   distinct motion vectors in one P frame; the MC kernel also on the
+   tall-pad and out-of-bounds clamp cases of ``tests/test_fast_paths.py``;
+4. the paths end to end on the card, each kernel counted:
+   ``jsvx_torch.transcode`` of the 1080p fixture (the fused kernel once
+   per frame and plane), bit-equal to the same call on the CPU;
+   ``StreamDecoder(...).decode(impl="two_kernel")`` (the MC and
+   reconstruction kernels once per frame and plane each), bit-equal to the
+   CPU and to ``impl="fused"`` on the card; the same three checks for
+   ``transcode`` with the quirk, with ``impl="two_kernel"`` and on a
+   stream whose GOP falls back to the dense wire; CIF and YUVA streams
+   through both routes within 1 LSB of the float64 oracle;
 5. timings (CUDA events, median of 30 after warm-up; host clock for the
-   end-to-end run), each with the card's name and power limit.
+   end-to-end runs), each with the card's name and power limit.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
@@ -40,19 +47,26 @@ import torch
 import bench
 from jsvx.tools import EncoderConfig, JsvEncoder, decode_stream_oracle, psnr
 from jsvx.runtime.profiler import Metrics
-from jsvx_torch.kernels import build, fused
+from jsvx_torch.kernels import build, fused, mc, recon
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
-                                       frame_comp_keys, make_constants)
+                                       frame_comp_keys, make_constants,
+                                       predict_plane)
 from jsvx_torch.kernels.expand import expand_compact_gop
 from jsvx_torch.pipeline.gop import decode_gop_wire, frame_at, zero_refs
 from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
                                               walk_stream)
+from jsvx_torch.pipeline.stream import StreamDecoder
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx_torch.pipeline.wire import flatten_wire, unflatten_wire, wire_spec
 
 KERNEL_SOURCE = "jsvx_torch/csrc/fused_decode.cu"
 KERNEL_REPLACES = "jsvx/kernels/pallas_fused.py:51"
+MC_SOURCE = "jsvx_torch/csrc/mc.cu"
+MC_REPLACES = "jsvx/kernels/pallas_mc.py:35"
+RECON_SOURCE = "jsvx_torch/csrc/recon.cu"
+RECON_REPLACES = "jsvx/kernels/pallas_decode.py:78"
 N_TIMED = 30
+N_E2E = 10
 SLEEP_MS = 25.0
 
 
@@ -109,6 +123,30 @@ def high_motion_stream() -> bytes:
     return enc.encode(bench._zoom_clip(mbs * 16, mbs * 16, 4, seed=11))
 
 
+def dirty_stream() -> bytes:
+    """Three 48x64 frames whose first picture carries its first slice
+    twice: overlapping slices, a GOP the compact wire cannot express (the
+    stream of tests/test_compact_wire.py, on the bench's pattern)."""
+    raw = JsvEncoder(64, 48, EncoderConfig(gop_size=3, quantizer_scale=4)) \
+        .encode(bench._zoom_clip(48, 64, 3, seed=13))
+    pic = raw.find(b"\x00\x00\x01\x00")
+    s0 = raw.find(b"\x00\x00\x01\x01", pic)
+    check(pic >= 0 and s0 > 0, "no first slice found")
+    nxt = s0 + 4
+    while True:
+        n = raw.find(b"\x00\x00\x01", nxt)
+        check(n > 0, "no start code after the first slice")
+        if 0x01 <= raw[n + 3] <= 0xAF or raw[n + 3] in (0x00, 0xB8):
+            break
+        nxt = n + 4
+    data = raw[:n] + raw[s0:n] + raw[n:]
+    meta, seq, groups = walk_stream(data)
+    g = parse_gop_compact(np.frombuffer(data, np.uint8), groups[0], seq,
+                          meta, BufferPool(), {})
+    check(g.dirty, "the duplicated slice did not make GOP 0 dirty")
+    return data
+
+
 def dense_gop(data: bytes, gi: int, device):
     """Parse GOP ``gi``, pack its wire, copy it to ``device``, expand."""
     arr = np.frombuffer(data, np.uint8)
@@ -125,59 +163,116 @@ def dense_gop(data: bytes, gi: int, device):
 # ---------------------------------------------------------------------------
 # Phase 3: kernel vs plain
 
-def kernel_vs_plain(label: str, data: bytes, gi: int, device,
-                    quirk_frames=()) -> int:
-    """Every frame and plane of GOP ``gi`` through the kernel and the plain
-    version on the same CUDA tensors (the kernel's output carries as the
-    next frame's reference).  Returns the max |kernel - plain|."""
+def kernels_vs_plain(label: str, data: bytes, gi: int, device,
+                     quirk_frames=()) -> dict:
+    """Every frame and plane of GOP ``gi`` through each kernel and its
+    plain version on the same CUDA tensors: the fused decode kernel, and
+    the two-kernel route's MC and reconstruction kernels, whose output
+    must also equal the fused kernel's.  The kernels' output carries as
+    the next frame's reference.  Returns the max |kernel - plain| of
+    each kernel."""
     meta, seq, g, _, _, dense = dense_gop(data, gi, device)
     consts = make_constants(seq, device)
     refs = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
                      device)
-    worst = 0
+    worst = {"fused": 0, "mc": 0, "recon": 0}
     for i in range(len(g.hdrs)):
         frame = frame_at(dense, i)
+        is_p = frame["is_p"]
         for quirk in sorted({False, i in quirk_frames}):
             planes = []
             for ci, key in enumerate(frame_comp_keys(frame)):
-                chroma = comp_is_chroma(ci)
-                k = fused.fused_decode_plane(frame[key], refs[ci],
-                                             frame["is_p"], consts, chroma,
-                                             quirk)
-                p = decode_frame_plane(frame[key], refs[ci], frame["is_p"],
-                                       consts, chroma, quirk)
+                c, chroma = frame[key], comp_is_chroma(ci)
+                fk = fused.fused_decode_plane(c, refs[ci], is_p, consts,
+                                              chroma, quirk)
+                fp = decode_frame_plane(c, refs[ci], is_p, consts, chroma,
+                                        quirk)
+                pk = mc.predict_plane_mc(refs[ci], c["mv"], c["rep_add"],
+                                         chroma)
+                pp = predict_plane(refs[ci], c["mv"], c["rep_add"],
+                                   chroma).to(torch.int16)
+                mult, flags = recon.expand_sideband(c, consts)
+                rk = recon.fused_recon_plane(c["levels"], mult, flags, pk,
+                                             is_p, consts, quirk)
+                rp = recon.recon_plane(c["levels"], mult, flags, pp, is_p,
+                                       consts, quirk)
                 sync(device)
-                n_diff = int((k != p).sum())
-                err = int((k.int() - p.int()).abs().max())
-                emit("kernel_vs_plain", stream=label, gop=gi, frame=i,
-                     plane=key, quirk=quirk, shape=list(k.shape),
-                     is_p=int(frame["is_p"]), mismatching_pixels=n_diff,
-                     max_abs_err=err)
-                check(n_diff == 0,
+                n_diff = {name: int((k != p).sum()) for name, k, p in (
+                    ("fused", fk, fp), ("mc", pk, pp), ("recon", rk, rp),
+                    ("route", rk, fk))}
+                err = {name: int((k.int() - p.int()).abs().max())
+                       for name, k, p in (("fused", fk, fp), ("mc", pk, pp),
+                                          ("recon", rk, rp))}
+                where = dict(stream=label, gop=gi, frame=i, plane=key,
+                             quirk=quirk, shape=list(fk.shape),
+                             is_p=int(is_p))
+                emit("kernel_vs_plain", **where,
+                     mismatching_pixels=n_diff["fused"],
+                     max_abs_err=err["fused"])
+                emit("two_kernel_vs_plain", **where,
+                     mc_mismatching_pixels=n_diff["mc"],
+                     mc_max_abs_err=err["mc"],
+                     recon_mismatching_pixels=n_diff["recon"],
+                     recon_max_abs_err=err["recon"],
+                     vs_fused_kernel_mismatching_pixels=n_diff["route"])
+                check(not any(n_diff.values()),
                       f"{label} frame {i} plane {key} quirk={quirk}: "
-                      f"{n_diff} pixels differ between kernel and plain")
-                worst = max(worst, err)
-                planes.append(k)
+                      f"pixels differ {n_diff}")
+                worst = {k: max(v, err[k]) for k, v in worst.items()}
+                planes.append(fk)
             if not quirk:
                 decoded = tuple(planes)
         refs = decoded
     return worst
 
 
+def mc_edge_cases(device) -> int:
+    """The MC kernel vs its plain version on the cases of
+    tests/test_fast_paths.py: a 24x128 plane with vectors (141, 3) and
+    (-140, -95) (the tall-pad case), and a 32x32 plane with vectors
+    pointing out of the picture (the clamp case); luma and chroma."""
+    rng = np.random.default_rng(1234)
+    worst = 0
+    for case, (h, w), vectors in (
+            ("tall_pad", (24, 128), [[0, 0], [141, 3], [-140, -95]]),
+            ("clamp", (32, 32), [[0, 0], [-13, -9], [15, 21]])):
+        ref = torch.from_numpy(rng.integers(0, 256, (h, w))
+                               .astype(np.uint8)).to(device)
+        idx = rng.integers(0, len(vectors), (h // 8, w // 8))
+        mv = torch.from_numpy(np.array(vectors, np.int16)[idx]).to(device)
+        rep = torch.from_numpy((rng.random((h // 8, w // 8)) < 0.2)
+                               .astype(np.uint8)).to(device)
+        for chroma in (False, True):
+            k = mc.predict_plane_mc(ref, mv, rep, chroma)
+            p = predict_plane(ref, mv, rep, chroma).to(torch.int16)
+            sync(device)
+            n_diff = int((k != p).sum())
+            err = int((k.int() - p.int()).abs().max())
+            emit("mc_edge_case", case=case, shape=[h, w], chroma=chroma,
+                 mismatching_pixels=n_diff, max_abs_err=err)
+            check(n_diff == 0, f"MC {case} chroma={chroma}: {n_diff} "
+                               f"pixels differ between kernel and plain")
+            worst = max(worst, err)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the slice
 
-def collect(data: bytes, device) -> tuple[list, object]:
+def collect(data: bytes, device, impl: str = "fused",
+            quirk: bool = False) -> tuple[list, object]:
     got = {}
     res = transcode(data, lambda gi, outs: got.__setitem__(
-        gi, [o.cpu() for o in outs]), device=device)
+        gi, [o.cpu() for o in outs]), device=device, impl=impl,
+        quirk_oddify_zeros=quirk)
     frames = [tuple(s[i].numpy() for s in got[g]) for g in sorted(got)
               for i in range(got[g][0].shape[0])]
     return frames, res
 
 
-def check_vs_oracle(label: str, data: bytes, device) -> float:
-    frames, res = collect(data, device)
+def check_vs_oracle(label: str, data: bytes, device,
+                    impl: str = "fused") -> float:
+    frames, res = collect(data, device, impl)
     oracle = decode_stream_oracle(data)
     check(len(frames) == len(oracle) == res.n_frames,
           f"{label}: {len(frames)} frames, oracle {len(oracle)}")
@@ -188,10 +283,66 @@ def check_vs_oracle(label: str, data: bytes, device) -> float:
             worst = max(worst, int(np.abs(p.astype(int)
                                           - q.astype(int)).max()))
             min_psnr = min(min_psnr, psnr(p, q))
-    emit("oracle", stream=label, frames=len(frames), planes=len(frames[0]),
-         max_abs_err_vs_oracle=worst, min_psnr_db=min_psnr)
+    emit("oracle", stream=label, impl=impl, frames=len(frames),
+         planes=len(frames[0]), max_abs_err_vs_oracle=worst,
+         min_psnr_db=min_psnr)
     check(worst <= 1, f"{label}: {worst} LSB from the oracle")
     return min_psnr
+
+
+def stream_frames(data: bytes, device, impl: str) -> list:
+    res = StreamDecoder(data, device=device).decode(impl=impl)
+    return [tuple(p.cpu().numpy() for p in f) for f in res.frames]
+
+
+def counted(run):
+    """``run()`` with every kernel's launch count set to 0 just before it;
+    returns (its result, the counts just after)."""
+    fused.launches = mc.launches = recon.launches = 0
+    out = run()
+    return out, {"fused": fused.launches, "mc": mc.launches,
+                 "recon": recon.launches}
+
+
+def mismatching_pixels(a: list, b: list) -> int:
+    check(len(a) == len(b) > 0, f"{len(a)} frames against {len(b)}")
+    n = 0
+    for fa, fb in zip(a, b):
+        check(len(fa) == len(fb), "plane count")
+        for pa, pb in zip(fa, fb):
+            check(pa.dtype == pb.dtype == np.uint8 and pa.shape == pb.shape,
+                  f"plane {pa.dtype} {pa.shape} vs {pb.dtype} {pb.shape}")
+            n += int((pa != pb).sum())
+    return n
+
+
+def check_path(label: str, run, device, n_planes: int) -> dict:
+    """One path through ``impl="two_kernel"`` on the card (the MC and the
+    reconstruction kernel once per frame and plane each, the fused kernel
+    never), through ``impl="fused"`` on the card, and through
+    ``"two_kernel"`` on the CPU: all three bit-equal.  ``run(device,
+    impl)`` returns the decoded frames as numpy.  Returns the two-kernel
+    run's launch counts."""
+    two, n_two = counted(lambda: run(device, "two_kernel"))
+    n_f = len(two)
+    fz, n_fz = counted(lambda: run(device, "fused"))
+    cpu = run(torch.device("cpu"), "two_kernel")
+    d_fused, d_cpu = mismatching_pixels(two, fz), mismatching_pixels(two,
+                                                                     cpu)
+    emit("path", path=label, frames=n_f, planes=n_planes,
+         two_kernel_launches=n_two, fused_launches=n_fz,
+         expected_launches=n_f * n_planes,
+         vs_fused_on_card_mismatching_pixels=d_fused,
+         vs_cpu_mismatching_pixels=d_cpu)
+    check(n_two == {"fused": 0, "mc": n_f * n_planes,
+                    "recon": n_f * n_planes} and n_f > 0,
+          f"{label}: launches {n_two} for {n_f} frames x {n_planes} planes")
+    check(n_fz == {"fused": n_f * n_planes, "mc": 0, "recon": 0},
+          f"{label}: fused route launches {n_fz}")
+    check(d_fused == 0, f"{label}: two-kernel and fused routes differ on "
+                        f"the card in {d_fused} pixels")
+    check(d_cpu == 0, f"{label}: card and CPU differ in {d_cpu} pixels")
+    return n_two
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +406,33 @@ def device_ms(fn, device, k: int) -> tuple[list[float], float, float]:
     return times, covered / N_TIMED, statistics.median(host)
 
 
+def time_in_turns(name: str, kernel, plain, dev, card: str, plane: str,
+                  shape: list, moved: int) -> dict:
+    """A kernel's and its plain version's device time on the same inputs,
+    in turns (plain, kernel, kernel, plain), and per call with the host in
+    the loop; prints one ``kernel_time`` line."""
+    p1, pc1, ph1 = device_ms(plain, dev, 1)
+    k1, kc1, kh1 = device_ms(kernel, dev, 20)
+    k2, kc2, kh2 = device_ms(kernel, dev, 20)
+    p2, pc2, ph2 = device_ms(plain, dev, 1)
+    kcall, pcall = call_ms(kernel, dev), call_ms(plain, dev)
+    t = dict(ms=statistics.median(k1 + k2),
+             plain_ms=statistics.median(p1 + p2))
+    emit("kernel_time", kernel=name, card=card, plane=plane, shape=shape,
+         kernel_ms=t["ms"], plain_ms=t["plain_ms"],
+         kernel_ms_runs=[statistics.median(k1), statistics.median(k2)],
+         plain_ms_runs=[statistics.median(p1), statistics.median(p2)],
+         host_ahead_share={"kernel": min(kc1, kc2), "plain": min(pc1, pc2)},
+         host_enqueue_ms={"kernel_x20": max(kh1, kh2),
+                          "plain_x1": max(ph1, ph2)},
+         speedup=t["plain_ms"] / t["ms"],
+         kernel_call_ms=statistics.median(kcall),
+         plain_call_ms=statistics.median(pcall),
+         min_bytes=moved, achieved_gb_s=moved / (t["ms"] * 1e-3) / 1e9,
+         reps=2 * N_TIMED, l2="warm (inputs resident, 50 MB L2)")
+    return t
+
+
 def smoke(dev: torch.device) -> None:
     t_start = time.perf_counter()
 
@@ -281,14 +459,16 @@ def smoke(dev: torch.device) -> None:
         data_1080 = f.read()
     emit("fixture", path=fix, bytes=len(data_1080),
          seconds=time.perf_counter() - t0)
-    worst = kernel_vs_plain("1080p", data_1080, 0, dev, quirk_frames=(1,))
+    worst = kernels_vs_plain("1080p", data_1080, 0, dev, quirk_frames=(1,))
     hm = high_motion_stream()
     _, _, g, _, _, _ = dense_gop(hm, 1, dev)
     n_mv = len(np.unique(g.stacked["mb"]["mv"][1].reshape(-1, 2), axis=0))
     emit("high_motion", distinct_mvs=n_mv)
     check(n_mv >= 256, f"{n_mv} distinct vectors, expected >= 256")
     for gi in range(2):
-        worst = max(worst, kernel_vs_plain("320x320-256mv", hm, gi, dev))
+        w = kernels_vs_plain("320x320-256mv", hm, gi, dev)
+        worst = {k: max(v, w[k]) for k, v in worst.items()}
+    worst["mc"] = max(worst["mc"], mc_edge_cases(dev))
 
     # ---- 4. the slice -------------------------------------------------------
     fused.launches = 0
@@ -313,13 +493,29 @@ def smoke(dev: torch.device) -> None:
     emit("cuda_vs_cpu", frames=len(cuda_frames), mismatching_pixels=n_diff)
     check(n_diff == 0 and len(cuda_frames) == len(cpu_frames) == res.n_frames,
           f"CUDA and CPU transcode differ: {n_diff} pixels")
-    cif = bench._zoom_clip(288, 352, 12, seed=7)
-    check_vs_oracle("cif-352x288", JsvEncoder(352, 288, EncoderConfig(
+    cif = JsvEncoder(352, 288, EncoderConfig(
         gop_size=6, quantizer_scale=6, me_range=8,
-        half_pel_refine=True)).encode(cif), dev)
-    check_vs_oracle("yuva-128x96", JsvEncoder(128, 96, EncoderConfig(
+        half_pel_refine=True)).encode(bench._zoom_clip(288, 352, 12, seed=7))
+    check_vs_oracle("cif-352x288", cif, dev)
+    yuva = JsvEncoder(128, 96, EncoderConfig(
         gop_size=4, quantizer_scale=5, me_range=6,
-        half_pel_refine=True)).encode(yuva_clip(8, 96, 128)), dev)
+        half_pel_refine=True)).encode(yuva_clip(8, 96, 128))
+    check_vs_oracle("yuva-128x96", yuva, dev)
+
+    # the two-kernel route: the stream decoder is its main path
+    n_two = check_path(
+        "stream_decoder", lambda d, impl: stream_frames(data_1080, d, impl),
+        dev, n_planes)
+    check_path("transcode_quirk",
+               lambda d, impl: collect(data_1080, d, impl, quirk=True)[0],
+               dev, n_planes)
+    check_path("transcode_two_kernel",
+               lambda d, impl: collect(data_1080, d, impl)[0], dev, n_planes)
+    dirty = dirty_stream()
+    check_path("transcode_dirty_gop",
+               lambda d, impl: collect(dirty, d, impl)[0], dev, 3)
+    check_vs_oracle("cif-352x288", cif, dev, "two_kernel")
+    check_vs_oracle("yuva-128x96", yuva, dev, "two_kernel")
 
     # ---- 5. timing ----------------------------------------------------------
     meta, seq, g, wire, spec, dense = dense_gop(data_1080, 0, dev)
@@ -332,40 +528,37 @@ def smoke(dev: torch.device) -> None:
                  for ci, k in enumerate(frame_comp_keys(f0)))
     f1 = frame_at(dense, 1)                 # a P frame
     check(int(f1["is_p"]) == 1, "frame 1 of GOP 0 is not a P frame")
-    timing = {}
+    timing = {"fused": {}, "mc": {}, "recon": {}}
     for ci, key in ((0, "y"), (1, "cb")):
-        chroma = comp_is_chroma(ci)
-        kernel = lambda: fused.fused_decode_plane(  # noqa: E731
-            f1[key], refs[ci], f1["is_p"], consts, chroma)
-        plain = lambda: decode_frame_plane(  # noqa: E731
-            f1[key], refs[ci], f1["is_p"], consts, chroma)
-        # in turns: plain, kernel, kernel, plain
-        p1, pc1, ph1 = device_ms(plain, dev, 1)
-        k1, kc1, kh1 = device_ms(kernel, dev, 20)
-        k2, kc2, kh2 = device_ms(kernel, dev, 20)
-        p2, pc2, ph2 = device_ms(plain, dev, 1)
-        kcall, pcall = call_ms(kernel, dev), call_ms(plain, dev)
+        chroma, c, is_p = comp_is_chroma(ci), f1[key], f1["is_p"]
         shape = list(refs[ci].shape)
-        timing[key] = dict(ms=statistics.median(k1 + k2),
-                           plain_ms=statistics.median(p1 + p2))
         px = shape[0] * shape[1]
-        # bytes the kernel must move: levels 2 B + out 1 B per pixel, at
-        # least one reference tap 1 B; the per-block sideband is 1/64th
-        moved = px * 4 + (px // 64) * 8
-        emit("kernel_time", card=card, plane=key, shape=shape,
-             kernel_ms=timing[key]["ms"], plain_ms=timing[key]["plain_ms"],
-             kernel_ms_runs=[statistics.median(k1), statistics.median(k2)],
-             plain_ms_runs=[statistics.median(p1), statistics.median(p2)],
-             host_ahead_share={"kernel": min(kc1, kc2),
-                               "plain": min(pc1, pc2)},
-             host_enqueue_ms={"kernel_x20": max(kh1, kh2),
-                              "plain_x1": max(ph1, ph2)},
-             speedup=timing[key]["plain_ms"] / timing[key]["ms"],
-             kernel_call_ms=statistics.median(kcall),
-             plain_call_ms=statistics.median(pcall),
-             min_bytes=moved,
-             achieved_gb_s=moved / (timing[key]["ms"] * 1e-3) / 1e9,
-             reps=2 * N_TIMED, l2="warm (inputs resident, 50 MB L2)")
+        mult, flags = recon.expand_sideband(c, consts)
+        pred = mc.predict_plane_mc(refs[ci], c["mv"], c["rep_add"], chroma)
+        cases = {
+            # bytes each kernel must move: levels 2 B + out 1 B per pixel,
+            # at least one reference tap 1 B, the per-block sideband 1/64th
+            "fused": (lambda: fused.fused_decode_plane(
+                c, refs[ci], is_p, consts, chroma),
+                lambda: decode_frame_plane(c, refs[ci], is_p, consts,
+                                           chroma),
+                px * 4 + (px // 64) * 8),
+            # out 2 B, at least one reference tap 1 B, vector + rep_add
+            "mc": (lambda: mc.predict_plane_mc(refs[ci], c["mv"],
+                                               c["rep_add"], chroma),
+                   lambda: predict_plane(refs[ci], c["mv"], c["rep_add"],
+                                         chroma).to(torch.int16),
+                   px * 3 + (px // 64) * 5),
+            # levels 2, mult 2, flags 1, pred 2, out 1
+            "recon": (lambda: recon.fused_recon_plane(
+                c["levels"], mult, flags, pred, is_p, consts),
+                lambda: recon.recon_plane(c["levels"], mult, flags, pred,
+                                          is_p, consts),
+                px * 8),
+        }
+        for name, (kernel, plain, moved) in cases.items():
+            timing[name][key] = time_in_turns(name, kernel, plain, dev,
+                                              card, key, shape, moved)
 
     n_f = len(g.hdrs)
 
@@ -392,6 +585,26 @@ def smoke(dev: torch.device) -> None:
          / statistics.median(gop_call),
          reps=N_TIMED, what="unflatten + expand + GOP loop, resident wire")
 
+    def gop_two():
+        zr = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
+                       dev)
+        return decode_gop_wire(wire, spec, zr, consts, seq.mb_height,
+                               seq.mb_width, impl="two_kernel")
+
+    two_dev, two_cov, _ = device_ms(gop_two, dev, 2)
+    two_call = call_ms(gop_two, dev)
+    emit("device_gop_decode_two_kernel", card=card, frames=n_f,
+         gop_ms=statistics.median(two_call),
+         frames_per_s=n_f / (statistics.median(two_call) * 1e-3),
+         fused_frames_per_s=n_f / (statistics.median(gop_call) * 1e-3),
+         device_busy_ms=statistics.median(two_dev),
+         fused_device_busy_ms=statistics.median(gop_dev),
+         host_ahead_share=two_cov,
+         device_idle_share=1 - statistics.median(two_dev)
+         / statistics.median(two_call),
+         reps=N_TIMED, what="unflatten + expand + GOP loop (sideband "
+                             "expansion, MC, reconstruction), resident wire")
+
     m = Metrics()
     wall = []
     for rep in range(N_TIMED + 1):
@@ -413,14 +626,44 @@ def smoke(dev: torch.device) -> None:
          reps=N_TIMED, stage_s_per_gop=stages,
          wire_bytes_per_run=m.gauges["wire_bytes"])
 
+    for impl in ("two_kernel", "fused"):
+        m, wall = Metrics(), []
+        for rep in range(N_E2E + 1):
+            mm = Metrics() if rep == 0 else m  # rep 0 is the warm-up
+            sync(dev)
+            t0 = time.perf_counter()
+            r = StreamDecoder(data_1080, device=dev).decode(impl=impl,
+                                                            metrics=mm)
+            sync(dev)
+            if rep:
+                wall.append(time.perf_counter() - t0)
+        n_fr = len(r.frames)
+        emit("stream_decoder_end_to_end", card=card, impl=impl, frames=n_fr,
+             median_s=statistics.median(wall),
+             frames_per_s=n_fr / statistics.median(wall), reps=N_E2E,
+             stage_s_per_run={k: v / N_E2E
+                              for k, v in m.timers.totals.items()},
+             what="parse_all + pack + one copy per GOP + GOP decode; "
+                  "frames stay on the card")
+
     check("jax" not in sys.modules, "JAX was imported")
     emit("done", seconds=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [{
-        "name": "fused_decode_plane", "route": "cuda",
-        "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-        "launches": launches, "max_abs_err": worst,
-        "ms": timing["y"]["ms"], "plain_ms": timing["y"]["plain_ms"]}]}),
-        flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "fused_decode_plane", "route": "cuda",
+         "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
+         "launches": launches, "max_abs_err": worst["fused"],
+         "ms": timing["fused"]["y"]["ms"],
+         "plain_ms": timing["fused"]["y"]["plain_ms"]},
+        {"name": "predict_plane_mc", "route": "cuda",
+         "source": MC_SOURCE, "replaces": MC_REPLACES,
+         "launches": n_two["mc"], "max_abs_err": worst["mc"],
+         "ms": timing["mc"]["y"]["ms"],
+         "plain_ms": timing["mc"]["y"]["plain_ms"]},
+        {"name": "fused_recon_plane", "route": "cuda",
+         "source": RECON_SOURCE, "replaces": RECON_REPLACES,
+         "launches": n_two["recon"], "max_abs_err": worst["recon"],
+         "ms": timing["recon"]["y"]["ms"],
+         "plain_ms": timing["recon"]["y"]["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,11 +20,12 @@
 // every plane (coalesced).  The dequantised block goes to shared memory,
 // then the column pass, then the row pass.
 //
-// Exactness: each 1-D pass is the explicit sum c[x,0]*f[0] + c[x,1]*f[1]
-// + ... + c[x,7]*f[7], left to right, with __fmul_rn/__fadd_rn (never
-// contracted into a fused multiply-add; the build passes -fmad=false as
-// well).  The plain version sums in the same order with separate torch
-// multiplies and adds.  rintf rounds half to even, as torch.round does.
+// Exactness: the dequantisation core, both IDCT passes and the half-pel
+// taps come from block_math.cuh, shared with recon.cu and mc.cu.  Each 1-D
+// pass is the explicit sum c[x,0]*f[0] + ... + c[x,7]*f[7], left to right,
+// never contracted into a fused multiply-add; the plain version sums in
+// the same order with separate torch multiplies and adds.  rintf rounds
+// half to even, as torch.round does.
 //
 // Motion compensation reads the four half-pel taps straight from the
 // reference with each index clamped to the plane (CLAMP_TO_EDGE), per
@@ -38,14 +39,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_math.cuh"
+
 namespace {
 
 constexpr int kBlocksPerCta = 4;
 constexpr int kCtaW = 8 * kBlocksPerCta;   // 32 pixels: one warp per row
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-    return min(max(v, lo), hi);
-}
 
 __global__ void __launch_bounds__(kCtaW * 8)
 fused_decode_kernel(const int16_t* __restrict__ levels,   // (h, w)
@@ -79,10 +78,9 @@ fused_decode_kernel(const int16_t* __restrict__ levels,   // (h, w)
     const int bx = blockIdx.x * kBlocksPerCta + (tx >> 3);
     const bool live = bx < wb;           // ragged right edge of the plane
     const int blk = blockIdx.y * wb + bx;
-    const int u = tx & 7;                // column within the block
-    const int pos = ty * 8 + u;          // spatial position within it
+    const int pos = ty * 8 + (tx & 7);   // spatial position in the block
     const int y = blockIdx.y * 8 + ty;
-    const int x = bx * 8 + u;
+    const int x = bx * 8 + (tx & 7);
     const size_t pix = (size_t)y * w + x;
     __syncthreads();
 
@@ -91,68 +89,21 @@ fused_decode_kernel(const int16_t* __restrict__ levels,   // (h, w)
     if (live) {
         const int lv = levels[pix];
         const bool is_intra = intra[blk] != 0;
-        const int sgn = (lv > 0) - (lv < 0);
-        const int pre_sign = quirk ? (lv < 0 ? -1 : 1) : sgn;
-        const int pre = is_intra ? 2 * lv : 2 * lv + pre_sign;
         const int m = is_intra ? s_q[pos] : s_q[64 + pos];
-        int d = (pre * (int)qscale[blk] * m) >> 4;     // floor(x / 16)
-        const bool even = (d & 1) == 0;
-        if (quirk) {
-            if (even) d -= (d > 0) ? 1 : -1;
-        } else if (even && lv != 0) {
-            d -= (d > 0) - (d < 0);                     // toward zero
-        }
-        d = clampi(d, -2048, 2047);
+        int d = jsvx::dequant_coef(lv, (int)qscale[blk] * m, !is_intra,
+                                   quirk != 0);
         if (s_q[128 + pos] >= (int)lnz[blk]) d = 0;     // outside the scan
         if (pos == 0 && is_intra) d = 8 * lv;           // intra DC
         f = (float)d;
     }
-    s_f[ty][tx] = f;
-    __syncthreads();
-
-    // ---- column pass: cols[x][l] = sum_u C[x][u] * F[u][l] ----
-    float acc = __fmul_rn(s_c[ty * 8], s_f[0][tx]);
-#pragma unroll
-    for (int k = 1; k < 8; ++k) {
-        acc = __fadd_rn(acc, __fmul_rn(s_c[ty * 8 + k], s_f[k][tx]));
-    }
-    s_col[ty][tx] = acc;
-    __syncthreads();
-
-    // ---- row pass: rows[x][y] = sum_v C[y][v] * cols[x][v] ----
-    const int base = tx & ~7;
-    float res = __fmul_rn(s_c[u * 8], s_col[ty][base]);
-#pragma unroll
-    for (int k = 1; k < 8; ++k) {
-        res = __fadd_rn(res, __fmul_rn(s_c[u * 8 + k], s_col[ty][base + k]));
-    }
+    const float res = jsvx::idct_strip<kCtaW>(f, s_c, s_f, s_col, tx, ty);
     if (!live) return;
 
     // ---- half-pel prediction (jsvx/kernels/decode.py::predict_plane) ----
     int pred = 0;
     if (*is_p != 0 && rep_add[blk] == 0) {
-        int mvy = mv[2 * blk];
-        int mvx = mv[2 * blk + 1];
-        if (is_chroma) {                 // truncation toward zero
-            mvy /= 2;
-            mvx /= 2;
-        }
-        const int oy = mvy & 1, ox = mvx & 1;
-        const int y0 = clampi(y + (mvy >> 1), 0, h - 1);   // >> floors
-        const int x0 = clampi(x + (mvx >> 1), 0, w - 1);
-        const int y1 = clampi(y + (mvy >> 1) + 1, 0, h - 1);
-        const int x1 = clampi(x + (mvx >> 1) + 1, 0, w - 1);
-        const int a = ref[(size_t)y0 * w + x0];
-        if (!oy && !ox) {
-            pred = a;
-        } else if (!oy) {
-            pred = (a + ref[(size_t)y0 * w + x1] + 1) >> 1;
-        } else if (!ox) {
-            pred = (a + ref[(size_t)y1 * w + x0] + 1) >> 1;
-        } else {
-            pred = (a + ref[(size_t)y0 * w + x1] + ref[(size_t)y1 * w + x0]
-                    + ref[(size_t)y1 * w + x1] + 2) >> 2;
-        }
+        pred = jsvx::halfpel_predict(ref, h, w, y, x, mv[2 * blk],
+                                     mv[2 * blk + 1], is_chroma != 0);
     }
 
     const float v = rintf(__fadd_rn((float)pred, res));

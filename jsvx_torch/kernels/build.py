@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels on first use and bind them with ctypes.
 
-``nvcc`` compiles ``jsvx_torch/csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, under ``build/jsvx_torch/<key>/``
-at the root of the checkout (``build/`` is git-ignored).  The key is a hash
-of the sources and the command, so an edited source builds anew and an
-unchanged one is loaded from disk.  Nothing is built at import time.
+``nvcc`` compiles each ``jsvx_torch/csrc/*.cu`` for Hopper (``sm_90a``),
+all at once in parallel processes, and links them into one shared library
+with a plain C interface, under ``build/jsvx_torch/<key>/`` at the root of
+the checkout (``build/`` is git-ignored).  The key is a hash of every
+source and header in ``csrc/`` and of the command, so an edited file
+builds anew and an unchanged tree is loaded from disk.  Nothing is built
+at import time.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from dataclasses import dataclass
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("fused_decode.cu",)
+SOURCES = ("fused_decode.cu", "recon.cu", "mc.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "jsvx_torch")
 LIB_NAME = "libjsvx_torch_kernels.so"
 
@@ -43,28 +45,63 @@ def nvcc_path() -> str:
     return "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(sources: list[str], out: str) -> list[str]:
-    """The compile command: sm_90a, no FMA contraction (the IDCT's bits
-    must not depend on the compiler's choice), ptxas resource report."""
+def nvcc_command(sources: list[str], out: str, *,
+                 compile_only: bool = False) -> list[str]:
+    """The nvcc command: sm_90a, no FMA contraction (the IDCT's bits must
+    not depend on the compiler's choice), ptxas resource report.  It
+    compiles one source to an object with ``compile_only``, and otherwise
+    compiles and links ``sources`` (sources or objects) into a shared
+    library."""
     return [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-            "-shared", "-Xcompiler", "-fPIC", "-o", out, *sources]
+            "-Xcompiler", "-fPIC",
+            *(["-c"] if compile_only else ["-shared"]), "-o", out, *sources]
 
 
-def _key(sources: list[str]) -> str:
+def _key(csrc: str = CSRC) -> str:
+    """Hash of every ``*.cu`` and ``*.cuh`` in ``csrc`` (names and bytes)
+    and of the commands: a header edit changes it as a source edit does."""
     h = hashlib.sha256()
-    for s in sources:
-        with open(s, "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(nvcc_command(["SRC"], "OUT")[1:]).encode())
+    for name in sorted(os.listdir(csrc)):
+        if name.endswith((".cu", ".cuh")):
+            h.update(name.encode() + b"\0")
+            with open(os.path.join(csrc, name), "rb") as f:
+                h.update(f.read())
+    for compile_only in (True, False):
+        h.update(" ".join(nvcc_command(["SRC"], "OUT",
+                                       compile_only=compile_only)[1:])
+                 .encode())
     return h.hexdigest()[:16]
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.jsvx_fused_decode_plane
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, argtypes in (
+            ("jsvx_fused_decode_plane", [ptr] * 11 + [i32] * 5 + [ptr]),
+            ("jsvx_recon_plane", [ptr] * 7 + [i32] * 4 + [ptr]),
+            ("jsvx_mc_plane", [ptr] * 4 + [i32] * 4 + [ptr])):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+
+
+def _run_nvcc(commands: list[list[str]]) -> tuple[str, list[int]]:
+    """Start every command at once, wait for all; (output, exit codes)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    logs, codes = [], []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=600)
+            logs.append(out)
+            codes.append(p.returncode)
+    finally:                             # a timeout leaves none running
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return "".join(logs), codes
 
 
 def load() -> BuiltLibrary:
@@ -73,21 +110,27 @@ def load() -> BuiltLibrary:
     with _lock:
         if _built is not None:
             return _built
-        sources = [os.path.join(CSRC, s) for s in SOURCES]
-        out_dir = os.path.join(BUILD_ROOT, _key(sources))
+        out_dir = os.path.join(BUILD_ROOT, _key())
         path = os.path.join(out_dir, LIB_NAME)
         seconds, log = 0.0, ""
         if not os.path.exists(path):
             os.makedirs(out_dir, exist_ok=True)
-            tmp = f"{path}.tmp{os.getpid()}"
+            tag = f"tmp{os.getpid()}"
+            objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in SOURCES]
             t0 = time.perf_counter()
-            proc = subprocess.run(nvcc_command(sources, tmp),
-                                  capture_output=True, text=True,
-                                  timeout=600)
+            log, codes = _run_nvcc([
+                nvcc_command([os.path.join(CSRC, s)], o, compile_only=True)
+                for s, o in zip(SOURCES, objs)])
+            if any(codes):
+                raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
+            tmp = f"{path}.{tag}"
+            link_log, (code,) = _run_nvcc([nvcc_command(objs, tmp)])
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            log += link_log
+            if code:
+                raise RuntimeError(f"nvcc link failed ({code}):\n{log}")
+            for o in objs:
+                os.remove(o)
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
         _declare(lib)

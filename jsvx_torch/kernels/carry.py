@@ -11,7 +11,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .decode import DecodeConstants
+from .decode import COMP_KEYS, DecodeConstants
+
+#: the per-plane fields the port's decode reads (jsvx's mvset sideband,
+#: ``mv_idx``/``mv_lo``/``mv_hi``, is resolved or dropped)
+_PLANE_FIELDS = ("levels", "lnz", "q", "intra", "mv", "rep_add", "mult",
+                 "flags")
 
 
 def constants_from_jax(c_basis: np.ndarray, intra_q_key, non_intra_q_key,
@@ -44,3 +49,27 @@ def refs_from_numpy(planes, device) -> tuple:
         out.append(torch.from_numpy(np.ascontiguousarray(a).copy())
                    .to(device))
     return tuple(out)
+
+
+def frame_from_jax(d: dict, device) -> dict:
+    """A jsvx ``frame_to_device`` dict, given as numpy, -> the port's frame
+    dict on ``device``, the same dtypes.
+
+    Where a plane has only the mvset sideband (``mv_idx`` into the frame's
+    ``mv_table``), its per-block vectors are resolved as
+    ``mv_table[mv_idx]``; the table, its count and the row bounds are
+    dropped, since the port reads per-block vectors.
+    """
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+    out = {"is_p": on(np.asarray(d["is_p"], np.int32))}
+    for key in COMP_KEYS:
+        if key not in d:
+            continue
+        c = dict(d[key])
+        if "mv" not in c:
+            c["mv"] = np.asarray(d["mv_table"])[np.asarray(c["mv_idx"])] \
+                .astype(np.int16)
+        out[key] = {f: on(c[f]) for f in _PLANE_FIELDS if f in c}
+    return out

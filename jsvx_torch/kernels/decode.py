@@ -84,7 +84,69 @@ def _up8(a: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Host packing of one parsed picture
+
+def _mb_to_blocks(a: np.ndarray, comp: int) -> np.ndarray:
+    """Per-MB (mb_h, mb_w, ...) -> per-block grid of plane ``comp`` (each
+    luma-like MB covers 2x2 blocks)."""
+    if comp_is_chroma(comp):
+        return a
+    return np.repeat(np.repeat(a, 2, axis=0), 2, axis=1)
+
+
+def frame_to_device(ft, dtype_levels=np.int16) -> dict:
+    """FrameTensors -> dict of numpy arrays the decode consumes.
+
+    The numpy copy of ``jsvx/kernels/decode.py::frame_to_device`` with
+    ``mv_capacity=0``: the port's motion compensation reads per-block
+    vectors, so no distinct-vector table is built.  Per-MB sideband is
+    expanded to the per-block grid of each plane; the parser-emitted
+    per-pixel ``mult``/``flags`` are carried when present.
+    """
+    out = dict(is_p=np.int32(0 if ft.is_intra_picture else 1),
+               f_code=np.int32(ft.f_code))
+    for comp in range(len(ft.levels)):
+        c = dict(
+            levels=ft.levels[comp].astype(dtype_levels, copy=False),
+            lnz=ft.lnz[comp],
+            q=_mb_to_blocks(ft.mb_quant, comp),
+            intra=_mb_to_blocks(ft.mb_intra, comp),
+            mv=_mb_to_blocks(ft.mb_mv, comp).astype(np.int16, copy=False),
+            rep_add=_mb_to_blocks(ft.mb_rep_add, comp),
+        )
+        if ft.mult is not None:
+            c["mult"] = ft.mult[comp]
+            c["flags"] = ft.flags[comp]
+        out[COMP_KEYS[comp]] = c
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Dequantisation (integer, reference semantics)
+
+def dequant_values(lv: torch.Tensor, mult: torch.Tensor,
+                   nonintra: torch.Tensor,
+                   quirk_oddify_zeros: bool = False) -> torch.Tensor:
+    """The integer core shared by both routes (and, in CUDA,
+    ``csrc/block_math.cuh::dequant_coef``): int32 levels, ``mult`` = q * M
+    and a non-intra mask, broadcast together -> clamped int32 values.
+
+    x2 (+sign for non-intra), x mult, /16 with floor, mismatch control
+    (an even result moves one step toward zero by ``sign(d)``, ISO 11172-2
+    and ``jsvx/tools/refmath.py``), clamp to [-2048, 2047].  The caller
+    applies the coded-scan mask and the intra DC override.
+    """
+    sign = torch.sign(lv)
+    pre_sign = torch.where(lv < 0, -1, 1) if quirk_oddify_zeros else sign
+    pre = torch.where(nonintra, 2 * lv + pre_sign, 2 * lv)
+    d = (pre * mult) >> 4                  # floor(x / 16), negatives too
+    even = (d & 1) == 0
+    if quirk_oddify_zeros:
+        d = torch.where(even, d - torch.where(d > 0, 1, -1), d)
+    else:
+        d = torch.where(even & (lv != 0), d - torch.sign(d), d)
+    return d.clamp(-2048, 2047)
+
 
 def dequant_plane(levels: torch.Tensor, q_blk: torch.Tensor,
                   intra_blk: torch.Tensor, lnz_blk: torch.Tensor,
@@ -92,10 +154,8 @@ def dequant_plane(levels: torch.Tensor, q_blk: torch.Tensor,
                   quirk_oddify_zeros: bool = False) -> torch.Tensor:
     """int16 level plane -> f32 dequantised coefficient plane.
 
-    x2 (+sign for non-intra), xq, xM/16 with floor, mismatch control
-    (an even result moves one step toward zero, ISO 11172-2 and
-    ``jsvx/tools/refmath.py``), clamp to [-2048, 2047], zero outside the
-    coded scan range, intra DC = 8*level.
+    :func:`dequant_values` with the per-block quantiser and matrix, then
+    zero outside the coded scan range and intra DC = 8*level.
     """
     h, w = levels.shape
     hb, wb = h // 8, w // 8
@@ -108,19 +168,8 @@ def dequant_plane(levels: torch.Tensor, q_blk: torch.Tensor,
     mn = qtab[1].reshape(1, 8, 1, 8)
     scan = qtab[2].reshape(1, 8, 1, 8)
 
-    sign = torch.sign(lv)
-    pre_sign = torch.where(lv < 0, -1, 1) if quirk_oddify_zeros else sign
-    pre = torch.where(intra, 2 * lv, 2 * lv + pre_sign)
-    m = torch.where(intra, mi, mn)
-    d = (pre * q * m) >> 4                 # floor(x / 16), negatives too
-
-    even = (d & 1) == 0
-    if quirk_oddify_zeros:
-        d = torch.where(even, d - torch.where(d > 0, 1, -1), d)
-    else:
-        d = torch.where(even & (lv != 0), d - torch.sign(d), d)
-    d = d.clamp(-2048, 2047)
-
+    d = dequant_values(lv, q * torch.where(intra, mi, mn), ~intra,
+                       quirk_oddify_zeros)
     d = torch.where(scan < lnz, d, 0)
     is_dc = scan == 0                      # spatial (0, 0): scan index 0
     d = torch.where(is_dc & intra, 8 * lv, d)

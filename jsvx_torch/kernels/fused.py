@@ -21,7 +21,9 @@ from .decode import (DecodeConstants, comp_is_chroma, decode_frame_plane,
 launches = 0
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what every kernel wrapper checks before a launch."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -31,6 +33,13 @@ def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def check_is_p(is_p: torch.Tensor, device) -> None:
+    if is_p.device != device or is_p.dtype != torch.int32 \
+            or is_p.numel() != 1:
+        raise ValueError("is_p must be one int32 element on the plane's "
+                         "device")
 
 
 def fused_decode_plane(comp_inputs: dict, ref: torch.Tensor,
@@ -61,22 +70,19 @@ def fused_decode_plane(comp_inputs: dict, ref: torch.Tensor,
     if h % 8 or w % 8:
         raise ValueError(f"plane {h}x{w} is not a multiple of 8")
     c = comp_inputs
-    _check("levels", c["levels"], torch.int16, (h, w), device)
+    check_tensor("levels", c["levels"], torch.int16, (h, w), device)
     for key in ("lnz", "q", "intra", "rep_add"):
-        _check(key, c[key], torch.uint8, (hb, wb), device)
-    _check("mv", c["mv"], torch.int16, (hb, wb, 2), device)
-    _check("ref", ref, torch.uint8, (h, w), device)
-    if is_p.device != device or is_p.dtype != torch.int32 \
-            or is_p.numel() != 1:
-        raise ValueError("is_p must be one int32 element on the plane's "
-                         "device")
+        check_tensor(key, c[key], torch.uint8, (hb, wb), device)
+    check_tensor("mv", c["mv"], torch.int16, (hb, wb, 2), device)
+    check_tensor("ref", ref, torch.uint8, (h, w), device)
+    check_is_p(is_p, device)
     qtab, c_basis = consts.qtab, consts.c_basis
-    _check("qtab", qtab, torch.int32, (3, 64), device)
-    _check("c_basis", c_basis, torch.float32, (8, 8), device)
+    check_tensor("qtab", qtab, torch.int32, (3, 64), device)
+    check_tensor("c_basis", c_basis, torch.float32, (8, 8), device)
     if out is None:
         out = torch.empty((h, w), dtype=torch.uint8, device=device)
     else:
-        _check("out", out, torch.uint8, (h, w), device)
+        check_tensor("out", out, torch.uint8, (h, w), device)
 
     from .build import load
 

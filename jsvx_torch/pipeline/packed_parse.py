@@ -1,13 +1,15 @@
-"""Host front end of the compact wire: header walk and per-GOP parse.
+"""Host front end: header walk and per-GOP parse, compact and dense.
 
-JAX-free copies of what the compact path needs from
+JAX-free copies of what the port needs from
 ``jsvx/pipeline/packed_parse.py`` and ``jsvx/pipeline/parallel_parse.py``
 (whose package imports JAX).  The C++ parser (``jsvx.bitstream.native``)
 writes each picture's coded coefficients, one uint16 entry each, and the
 per-macroblock sideband; :func:`parse_gop_compact` concatenates a GOP's
-entries into one bucket-padded array per component.  The port's decode
-kernel reads per-block motion vectors directly, so no distinct-vector
-table is built (the JAX package's ``mv_capacity=0``).
+entries into one bucket-padded array per component.
+:func:`parse_gop_packed` parses a GOP into dense stacked planes instead:
+the wire of the oddify-zeros quirk and of GOPs the compact wire cannot
+express.  The port's kernels read per-block motion vectors directly, so
+no distinct-vector table is built (the JAX package's ``mv_capacity=0``).
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import numpy as np
 from jsvx.bitstream.bitio import BitReader
 from jsvx.bitstream.container import StartCodeIndex, parse_container_header
 from jsvx.bitstream.native import get_native_parser
-from jsvx.bitstream.parser import StreamParser, alloc_frame_tensors
+from jsvx.bitstream.parser import (FrameTensors, StreamParser,
+                                   alloc_frame_tensors)
 from jsvx.coding import tables as T
 
-from ..kernels.decode import COMP_KEYS
+from ..kernels.decode import COMP_KEYS, comp_is_chroma
 
 
 class BufferPool:
@@ -228,3 +231,97 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
             pool.release(s)
     return CompactGop(stacked=out, hdrs=hdrs, pooled=pooled,
                       dirty=any(dirty))
+
+
+@dataclass
+class PackedGop:
+    """One GOP as dense stacked planes: ``stacked`` is the dict that goes
+    to the device, ``fts`` the pictures' FrameTensors (views of its rows),
+    ``pooled`` the pool buffers it holds."""
+
+    stacked: dict
+    fts: list
+    pooled: list = field(default_factory=list)
+
+
+def _mb_to_blocks(a: np.ndarray, comp: int) -> np.ndarray:
+    """Per-MB grid (stacked on a leading axis, or one 2-D frame) -> the
+    per-block grid of plane ``comp``."""
+    if comp_is_chroma(comp):
+        return a
+    return np.repeat(np.repeat(a, 2, axis=-2 if a.ndim == 2 else 1),
+                     2, axis=-1 if a.ndim == 2 else 2)
+
+
+def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
+                     pool: BufferPool | None = None,
+                     n_threads: int | None = None,
+                     slice_threads: int = 1) -> PackedGop:
+    """Parse one GOP's pictures into freshly-acquired stacked arrays.
+
+    Small per-MB arrays are zeroed; coefficient planes are NOT cleared:
+    the dequantiser masks every position at or after a block's ``lnz``,
+    coded blocks are fully written by the parser, and intra blocks (the
+    only readers of the DC override) are always coded.
+    """
+    native = get_native_parser()
+    if native is None:
+        raise RuntimeError("packed parse requires the C++ parser")
+    pool = pool or BufferPool()
+    n_comps = meta.n_components
+    mb_h, mb_w = seq.mb_height, seq.mb_width
+    ch, cw = seq.coded_height, seq.coded_width
+    plane_shapes = [(ch, cw), (ch >> 1, cw >> 1), (ch >> 1, cw >> 1),
+                    (ch, cw)][:n_comps]
+    lnz_shapes = [(2 * mb_h, 2 * mb_w), (mb_h, mb_w), (mb_h, mb_w),
+                  (2 * mb_h, 2 * mb_w)][:n_comps]
+
+    n = len(group)
+    levels = [pool.acquire((n,) + plane_shapes[c], np.int16)
+              for c in range(n_comps)]
+    lnzs = [np.zeros((n,) + lnz_shapes[c], np.uint8)
+            for c in range(n_comps)]
+    mb_quant = np.ones((n, mb_h, mb_w), np.uint8)
+    mb_intra = np.zeros((n, mb_h, mb_w), np.uint8)
+    mb_mv = np.zeros((n, mb_h, mb_w, 2), np.int16)
+    mb_rep_add = np.zeros((n, mb_h, mb_w), np.uint8)
+    fts = []
+    for i, (hdr, _) in enumerate(group):
+        fts.append(FrameTensors(
+            picture_type=hdr.picture_type,
+            temporal_ref=hdr.temporal_ref,
+            full_pel=hdr.full_pel, f_code=hdr.f_code,
+            gop_time_ms=hdr.gop_time_ms,
+            levels=tuple(lv[i] for lv in levels),
+            lnz=tuple(lz[i] for lz in lnzs),
+            mb_quant=mb_quant[i], mb_intra=mb_intra[i],
+            mb_mv=mb_mv[i], mb_rep_add=mb_rep_add[i]))
+
+    def run(i):
+        native.parse_picture_slices(arr, group[i][1], fts[i], mb_w, mb_h,
+                                    None, n_threads=slice_threads)
+
+    if n_threads == 1 or n == 1:
+        for i in range(n):
+            run(i)
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=n_threads) as tp:
+            list(tp.map(run, range(n)))
+
+    out = dict(
+        is_p=np.array([0 if ft.is_intra_picture else 1 for ft in fts],
+                      np.int32),
+        f_code=np.array([ft.f_code for ft in fts], np.int32),
+    )
+    for c in range(n_comps):
+        out[COMP_KEYS[c]] = dict(
+            levels=levels[c],
+            lnz=lnzs[c],
+            q=np.ascontiguousarray(_mb_to_blocks(mb_quant, c)),
+            intra=np.ascontiguousarray(_mb_to_blocks(mb_intra, c)),
+            mv=np.ascontiguousarray(_mb_to_blocks(mb_mv, c)),
+            rep_add=np.ascontiguousarray(_mb_to_blocks(mb_rep_add, c)),
+        )
+    return PackedGop(stacked=out, fts=fts, pooled=levels)

@@ -1,0 +1,128 @@
+"""Whole-stream decode on one device: the dense stream decoder.
+
+The port of ``jsvx/pipeline/stream.py``.  The host parses every picture
+with jsvx's JAX-free ``StreamParser`` (its C++ back end where it builds),
+packs each picture with :func:`jsvx_torch.kernels.decode.frame_to_device`,
+stacks a GOP's pictures, and copies the GOP to the device as one wire;
+the device decodes it with the ``impl`` chosen (see
+:mod:`jsvx_torch.pipeline.gop`).  The reference planes carry from GOP to
+GOP.  Stages are timed in ``Metrics``: ``parse``, ``pack``, ``h2d`` and
+``device_decode`` (ends when the GOP's planes are complete).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from jsvx.bitstream.bitio import BitReader
+from jsvx.bitstream.container import StartCodeIndex, parse_container_header
+from jsvx.bitstream.parser import StreamParser
+from jsvx.coding import tables as T
+from jsvx.runtime.profiler import Metrics
+
+from ..kernels.decode import frame_to_device, make_constants
+from .gop import (decode_gop_wire, frame_at, frame_decoder,
+                  stack_device_frames, zero_refs)
+from .packed_parse import BufferPool
+from .transcode import pack, synchronize, to_device
+from .wire import unflatten_wire
+
+
+@dataclass
+class StreamResult:
+    frames: list            # (Y, Cb, Cr[, A]) uint8 tensors per picture
+    picture_types: list
+    width: int
+    height: int
+    metrics: Metrics
+
+
+class StreamDecoder:
+    """Decode a complete in-memory JSV stream on ``device``."""
+
+    def __init__(self, data: bytes, quirk_oddify_zeros: bool = False, *,
+                 device):
+        self.data = bytes(data)
+        self.quirk = quirk_oddify_zeros
+        self.device = torch.device(device)
+        self.reader = BitReader(self.data)
+        self.meta = parse_container_header(self.reader)
+        self.index = StartCodeIndex.scan(self.data)
+        self.parser = StreamParser(yuva=self.meta.yuva)
+
+    def parse_all(self) -> list:
+        """Host pass: all FrameTensors in stream order."""
+        r, parser = self.reader, self.parser
+        out = []
+        while True:
+            nxt = self.index.next_code(r.byte_pos)
+            if nxt is None:
+                return out
+            off, code = nxt
+            r.seek_bits((off + 4) << 3)
+            if code == T.START_SEQUENCE:
+                parser.parse_sequence_header(r)
+            elif code == T.START_GOP:
+                parser.parse_gop_header(r)
+            elif code == T.START_PICTURE:
+                ft = parser.parse_picture(r, self.index, len(self.data))
+                if ft is not None:
+                    out.append(ft)
+
+    def decode(self, use_gop_scan: bool = True, impl: str | None = None,
+               metrics: Metrics | None = None) -> StreamResult:
+        """Decode every picture.  ``impl``: ``"fused"`` (None) or
+        ``"two_kernel"``.  ``use_gop_scan`` decodes a GOP (split at I
+        pictures) per wire through the GOP loop; ``False`` ships and
+        decodes one picture at a time through the same ``impl``."""
+        impl = impl or "fused"
+        decode_frame = frame_decoder(impl)
+        metrics = metrics or Metrics()
+        dev = self.device
+        with metrics.timers.stage("parse"):
+            fts = self.parse_all()
+        seq = self.parser.seq
+        consts = make_constants(seq, dev)
+        refs = zero_refs(seq.coded_height, seq.coded_width,
+                         self.meta.n_components, dev)
+        if use_gop_scan:
+            groups, cur = [], []
+            for ft in fts:
+                if ft.is_intra_picture and cur:
+                    groups.append(cur)
+                    cur = []
+                cur.append(ft)
+            if cur:
+                groups.append(cur)
+        else:
+            groups = [[ft] for ft in fts]
+
+        pool = BufferPool()
+        frames = []
+        for group in groups:
+            with metrics.timers.stage("pack"):
+                spec, buf = pack(stack_device_frames(
+                    [frame_to_device(ft) for ft in group]), pool)
+            with metrics.timers.stage("h2d"):
+                wire = to_device(buf, dev)
+            pool.release(buf)
+            with metrics.timers.stage("device_decode"):
+                if use_gop_scan:
+                    outs, refs = decode_gop_wire(
+                        wire, spec, refs, consts, seq.mb_height,
+                        seq.mb_width, self.quirk, impl)
+                    frames.extend(tuple(p[i] for p in outs)
+                                  for i in range(len(group)))
+                else:
+                    refs = decode_frame(frame_at(unflatten_wire(wire, spec),
+                                                 0), refs, consts,
+                                        self.quirk)
+                    frames.append(refs)
+                synchronize(dev)
+            metrics.count("frames", len(group))
+        return StreamResult(frames=frames,
+                            picture_types=[f.picture_type for f in fts],
+                            width=self.meta.width, height=self.meta.height,
+                            metrics=metrics)

@@ -101,9 +101,37 @@ def test_nvcc_command_targets_hopper_without_fma():
     assert "-fmad=false" in cmd
     assert {"-shared", "-O3", "-std=c++17"} <= set(cmd)
     assert cmd[cmd.index("-o") + 1] == "lib.so" and cmd[-1] == "k.cu"
+    obj = build.nvcc_command(["k.cu"], "k.o", compile_only=True)
+    assert "-c" in obj and "-shared" not in obj
+    assert obj[obj.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert "-fmad=false" in obj and cmd[-1] == "k.cu"
+    assert build.SOURCES == ("fused_decode.cu", "recon.cu", "mc.cu")
     assert all(os.path.exists(os.path.join(build.CSRC, s))
                for s in build.SOURCES)
     assert build.BUILD_ROOT == os.path.join(REPO, "build", "jsvx_torch")
+
+
+def test_build_key_tracks_every_source_and_header(tmp_path):
+    """A stale library must never load: an edit to the shared header, as
+    to any source, changes the build key; other files do not."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    names = sorted(os.listdir(csrc))
+    assert "block_math.cuh" in names
+    assert {"fused_decode.cu", "recon.cu", "mc.cu"} <= set(names)
+    key = build._key(str(csrc))
+    assert key == build._key(build.CSRC)
+    (csrc / "notes.txt").write_text("not compiled")
+    assert build._key(str(csrc)) == key
+    for name in ("block_math.cuh", "mc.cu"):
+        path = csrc / name
+        orig = path.read_bytes()
+        path.write_bytes(orig + b"\n// edited\n")
+        assert build._key(str(csrc)) != key, name
+        path.write_bytes(orig)
+        assert build._key(str(csrc)) == key
 
 
 @pytest.mark.cuda
@@ -125,12 +153,16 @@ def test_kernel_matches_plain_on_the_card():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and decoding a clip on the CPU loads no JAX
+    """Importing every module of the port and decoding a clip on the CPU,
+    through both routes, both wires and the stream decoder, loads no JAX
     (the card's machine has none)."""
     code = """
 import sys
 import numpy as np
 import jsvx_torch
+import jsvx_torch.__main__
+from jsvx_torch.kernels import carry, mc, recon
+from jsvx_torch.pipeline import gop, packed_parse, stream
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx.tools.encoder import EncoderConfig, JsvEncoder
 yy, xx = np.mgrid[0:32, 0:48]
@@ -140,6 +172,11 @@ frames = [((96 + 40 * np.sin((xx + 2 * t) / 5.0)).astype(np.uint8),
 data = JsvEncoder(48, 32, EncoderConfig(gop_size=2)).encode(frames)
 res = jsvx_torch.transcode(data, device="cpu")
 assert res.n_frames == 4, res
+for impl in ("fused", "two_kernel"):
+    assert jsvx_torch.transcode(data, device="cpu", impl=impl,
+                                quirk_oddify_zeros=True).n_frames == 4
+    out = jsvx_torch.StreamDecoder(data, device="cpu").decode(impl=impl)
+    assert len(out.frames) == 4
 assert "jax" not in sys.modules, "jax was imported"
 print("ok")
 """

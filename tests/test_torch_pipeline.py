@@ -219,6 +219,92 @@ def test_transcode_result_and_metrics(stream):
     assert res.metrics.gauges["wire_bytes"] > 0
 
 
-def test_transcode_quirk_not_ported(stream):
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        transcode(stream, device="cpu", quirk_oddify_zeros=True)
+def test_transcode_quirk_matches_jsvx(stream):
+    """The oddify-zeros quirk goes through the dense wire
+    (``_transcode_packed``), as in jsvx."""
+    port = _collect(lambda sink: transcode(stream, sink, device="cpu",
+                                           impl="two_kernel",
+                                           quirk_oddify_zeros=True))
+    ref = _collect(lambda sink: j_transcode(stream, sink, impl="xla",
+                                            quirk_oddify_zeros=True))
+    plain = _collect(lambda sink: transcode(stream, sink, device="cpu"))
+    assert len(port) == len(ref) == len(plain) == 10
+    n_diff = n_pix = n_quirk = 0
+    for fp, fr, fq in zip(port, ref, plain):
+        for p, r, q in zip(fp, fr, fq):
+            diff = np.abs(p.astype(int) - r.astype(int))
+            assert diff.max() <= 1
+            n_diff += int((diff > 0).sum())
+            n_pix += diff.size
+            n_quirk += int((p != q).sum())
+    print(f"quirk: {n_diff} of {n_pix} pixels differ from jsvx; the quirk "
+          f"changed {n_quirk}")
+    assert n_diff <= 1e-3 * n_pix
+    assert n_quirk > 0
+    fused = _collect(lambda sink: transcode(stream, sink, device="cpu",
+                                            quirk_oddify_zeros=True))
+    for fp, ff in zip(port, fused):
+        for p, f in zip(fp, ff):
+            assert np.array_equal(p, f)
+
+
+def test_transcode_two_kernel_bit_equal_to_fused(stream):
+    res = transcode(stream, device="cpu", impl="two_kernel")
+    assert res.n_frames == 10
+    two = _collect(lambda sink: transcode(stream, sink, device="cpu",
+                                          impl="two_kernel"))
+    fused = _collect(lambda sink: transcode(stream, sink, device="cpu"))
+    for ft, ff in zip(two, fused):
+        for a, b in zip(ft, ff):
+            assert np.array_equal(a, b)
+    with pytest.raises(ValueError, match="impl must be one of"):
+        transcode(stream, device="cpu", impl="pallas")
+
+
+def test_parse_gop_packed_bit_equal(stream):
+    """The dense parse: the port's copy of jsvx's ``parse_gop_packed``
+    (mv_capacity=0) gives the same stacked arrays and the same wire."""
+    arr = np.frombuffer(stream, np.uint8)
+    jm, js, jg = jpp.walk_stream(stream)
+    tm, ts, tg = tpp.walk_stream(stream)
+    for gi in range(len(tg)):
+        want = jpp.parse_gop_packed(arr, jg[gi], js, jm, 0,
+                                    pool=_ZeroPool(), index=gi)
+        got = tpp.parse_gop_packed(arr, tg[gi], ts, tm, pool=_ZeroPool())
+        assert len(got.fts) == len(want.fts)
+        wl, gl = dict(_leaves(want.stacked)), dict(_leaves(got.stacked))
+        assert wl.keys() == gl.keys()
+        for path, w in wl.items():
+            assert gl[path].dtype == w.dtype, path
+            assert np.array_equal(gl[path], w), path
+        spec = twire.wire_spec(got.stacked)
+        assert spec == jwire.wire_spec(want.stacked)
+        assert np.array_equal(
+            twire.flatten_wire(got.stacked, spec,
+                               out=np.zeros(spec[1], np.uint8)),
+            jwire.flatten_wire(want.stacked, spec,
+                               out=np.zeros(spec[1], np.uint8)))
+
+
+def test_dirty_stream_matches_jsvx_dense_fallback():
+    """A GOP whose slices overlap cannot go on the compact wire: it falls
+    back to the dense wire, GOP by GOP, as in jsvx."""
+    from test_compact_wire import _duplicate_first_slice
+
+    clip = synthetic_frames(3, 48, 64, seed=13)
+    data = _duplicate_first_slice(_encode(clip, gop_size=3,
+                                          quantizer_scale=4))
+    arr = np.frombuffer(data, np.uint8)
+    meta, seq, groups = tpp.walk_stream(data)
+    assert tpp.parse_gop_compact(arr, groups[0], seq, meta,
+                                 tpp.BufferPool(), {}).dirty
+    ref = _collect(lambda sink: j_transcode(data, sink, impl="xla"))
+    for impl in ("fused", "two_kernel"):
+        port = _collect(lambda sink: transcode(data, sink, device="cpu",
+                                               impl=impl))
+        assert len(port) == len(ref) == 3
+        for fp, fr in zip(port, ref):
+            for p, r in zip(fp, fr):
+                diff = np.abs(p.astype(int) - r.astype(int))
+                assert diff.max() <= 1
+                assert (diff > 0).sum() <= 1e-3 * diff.size
