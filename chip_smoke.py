@@ -24,6 +24,14 @@ each printing its own lines:
    ``transcode`` with the quirk, with ``impl="two_kernel"`` and on a
    stream whose GOP falls back to the dense wire; CIF and YUVA streams
    through both routes within 1 LSB of the float64 oracle;
+   playback: the streaming ``Decoder`` (GOP batch and picture by
+   picture; the fused kernel once per frame and plane in each) bit-equal
+   to ``StreamDecoder`` on the card and to the CPU, with a seek and with
+   the quirk; the ``Player`` with RGB output driven to ``ended`` by a
+   virtual clock, its RGB bit-equal to the CPU's and within 1 LSB of
+   ``refmath``; the YUVA stream's alpha through the Player, the
+   256-vector stream through the Decoder, and ``python -m jsvx_torch
+   play`` in a subprocess;
 5. timings (CUDA events, median of 30 after warm-up; host clock for the
    end-to-end runs), each with the card's name and power limit.
 
@@ -45,9 +53,14 @@ import numpy as np
 import torch
 
 import bench
+import jsvx.api.decoder
+from jsvx.api.player import Player as JsvxPlayer
 from jsvx.tools import EncoderConfig, JsvEncoder, decode_stream_oracle, psnr
+from jsvx.tools.refmath import ycbcr_to_rgb as ref_rgb
 from jsvx.runtime.profiler import Metrics
+from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.kernels import build, fused, mc, recon
+from jsvx_torch.kernels.color import ycbcr_to_rgb
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
                                        frame_comp_keys, make_constants,
                                        predict_plane)
@@ -346,6 +359,179 @@ def check_path(label: str, run, device, n_planes: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 4, playback: the Decoder and the Player
+
+PLAYER_EVENTS = ("loadstart", "durationchange", "loadedmetadata",
+                 "loadeddata", "progress", "canplay", "canplaythrough",
+                 "play", "playing", "waiting", "stalled", "seeking",
+                 "seeked", "ended", "error", "resize", "suspend", "frameout")
+
+
+def decoder_frames(data: bytes, device, scan: bool, quirk: bool = False,
+                   seek_gop: int | None = None) -> list:
+    """Every frame of ``data`` through the port's streaming Decoder, as
+    numpy; with ``seek_gop``, the frames after a seek to that key-map
+    GOP's time (made once the first frame is out)."""
+    d = Decoder(PlayerConfig(use_gop_scan=scan, quirk_oddify_zeros=quirk),
+                device=device)
+    d.feed(0, data, total=len(data))
+    if seek_gop is not None:
+        check(d.decode_frame() is not None, "no first frame")
+        km = d.meta.key_map
+        check(d.seek(km.time_of(seek_gop, d.sequence.picture_rate) * 1e3),
+              f"seek to GOP {seek_gop} failed")
+    frames = [tuple(p.cpu().numpy() for p in f.planes)
+              for f in d.iter_frames()]
+    check(d.ended, "the Decoder did not reach the end")
+    return frames
+
+
+def play(data: bytes, player) -> tuple[list, list, list]:
+    """Drive ``player`` (RGB output) with a virtual 30 Hz clock to
+    ``ended``; returns (its events, the RGB frames and the decoded planes
+    of each displayed frame, as numpy)."""
+    events, rgb, planes = [], [], []
+    for name in PLAYER_EVENTS:
+        player.on(name, lambda *a, n=name: events.append(
+            (n, int(player.ready_state))))
+    player.set_frame_sink(lambda f, t: rgb.append(
+        f.cpu().numpy() if isinstance(f, torch.Tensor) else None))
+    player.on("frameout", lambda f, t: planes.append(
+        tuple(np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p)
+              for p in f.planes)))
+    player.src = data
+    player.play()
+    t = 0.0
+    while not player.ended and t < 60.0:
+        t += 1 / 30.0
+        player.tick(t)
+    check(player.ended, "the Player did not reach ended")
+    return events, rgb, planes
+
+
+def check_decoder(label: str, data: bytes, dev, n_planes: int,
+                  straight: list | None) -> None:
+    """The Decoder on the card, GOP batch and picture by picture: the
+    fused kernel once per frame and plane, bit-equal to ``straight``
+    (``StreamDecoder`` on the card) and to the Decoder on the CPU; then
+    with a seek to GOP 1 and with the quirk, each bit-equal to the CPU."""
+    cpu = decoder_frames(data, torch.device("cpu"), True)
+    for scan in (True, False):
+        got, n = counted(lambda: decoder_frames(data, dev, scan))
+        n_f = len(got)
+        d_stream = (mismatching_pixels(got, straight)
+                    if straight is not None else None)
+        d_cpu = mismatching_pixels(got, cpu)
+        emit("decoder", stream=label, gop_batch=scan, frames=n_f,
+             planes=n_planes, launches=n, expected_fused=n_f * n_planes,
+             vs_stream_decoder_mismatching_pixels=d_stream,
+             vs_cpu_mismatching_pixels=d_cpu)
+        check(n == {"fused": n_f * n_planes, "mc": 0, "recon": 0},
+              f"{label} Decoder gop_batch={scan}: launches {n}")
+        check(not d_stream and d_cpu == 0,
+              f"{label} Decoder gop_batch={scan}: differs from the stream "
+              f"decoder in {d_stream} pixels, from the CPU in {d_cpu}")
+        tail, n = counted(lambda: decoder_frames(data, dev, scan,
+                                                 seek_gop=1))
+        d_tail = mismatching_pixels(tail, cpu[len(cpu) - len(tail):])
+        emit("decoder_seek", stream=label, gop_batch=scan, to_gop=1,
+             frames_after=len(tail), launches=n,
+             vs_straight_tail_mismatching_pixels=d_tail)
+        check(0 < len(tail) < n_f and d_tail == 0,
+              f"{label} seek: {len(tail)} frames, {d_tail} pixels differ")
+    quirk_cpu = decoder_frames(data, torch.device("cpu"), True, quirk=True)
+    for scan in (True, False):
+        got, n = counted(lambda: decoder_frames(data, dev, scan, quirk=True))
+        d_cpu = mismatching_pixels(got, quirk_cpu)
+        emit("decoder_quirk", stream=label, gop_batch=scan, launches=n,
+             vs_cpu_mismatching_pixels=d_cpu,
+             vs_plain_decode_mismatching_pixels=mismatching_pixels(got,
+                                                                   cpu))
+        check(n["fused"] == len(got) * n_planes and d_cpu == 0,
+              f"{label} quirk gop_batch={scan}: launches {n}, {d_cpu} "
+              f"pixels differ from the CPU")
+
+
+def check_player(label: str, data: bytes, dev, n_planes: int) -> dict:
+    """The Player with RGB output on the card, against the same Player on
+    the CPU: the same events, every RGB frame bit-equal, and within 1 LSB
+    of ``refmath.ycbcr_to_rgb`` on the displayed planes; a YUVA stream's
+    alpha channel equals its decoded alpha plane.  Returns the launch
+    counts of the card's run."""
+    (ev, rgb, planes), n = counted(lambda: play(
+        data, Player(PlayerConfig(emit_rgb=True), device=dev)))
+    ev_c, rgb_c, _ = play(data, Player(PlayerConfig(emit_rgb=True),
+                                       device="cpu"))
+    n_f = len(rgb)
+    d_cpu = mismatching_pixels([(x,) for x in rgb], [(x,) for x in rgb_c])
+    worst = 0
+    for x, p in zip(rgb, planes):
+        h, w = x.shape[:2]
+        worst = max(worst, int(np.abs(
+            x[..., :3].astype(int)
+            - ref_rgb(*p[:3])[:h, :w].astype(int)).max()))
+        if n_planes == 4:
+            check(np.array_equal(x[..., 3], p[3][:h, :w]),
+                  f"{label}: RGBA alpha is not the decoded alpha plane")
+    names = [e for e, _ in ev if e != "frameout"]
+    emit("player", stream=label, frames_shown=n_f, rgb_shape=list(
+        rgb[0].shape), launches=n, vs_cpu_mismatching_values=d_cpu,
+         max_abs_err_vs_refmath=worst, events_equal_cpu=ev == ev_c,
+         first_event=names[0], last_event=names[-1])
+    check(n["fused"] == n_f * n_planes and n_f > 0,
+          f"{label} Player: launches {n} for {n_f} frames")
+    check(ev == ev_c and names[0] == "loadstart" and names[-1] == "ended",
+          f"{label} Player: events differ from the CPU's or out of order")
+    check(d_cpu == 0 and worst <= 1,
+          f"{label} Player: RGB differs from the CPU in {d_cpu} values, "
+          f"{worst} LSB from refmath")
+    check(rgb[0].shape[-1] == (4 if n_planes == 4 else 3),
+          f"{label} Player: RGB shape {rgb[0].shape}")
+    return {"events": ev, "frames": n_f, "launches": n}
+
+
+def check_player_events_vs_jsvx(label: str, data: bytes, dev) -> None:
+    """The port's Player on the card gives jsvx's own Player's events and
+    ready states (its float64 oracle backend, no JAX) on ``data``."""
+    ev, _, _ = play(data, Player(PlayerConfig(emit_rgb=True), device=dev))
+    ev_j, _, _ = play(data, JsvxPlayer(PlayerConfig(), backend="oracle"))
+    emit("player_vs_jsvx", stream=label, events=len(ev),
+         events_equal=ev == ev_j)
+    check(ev == ev_j, f"{label}: the port's Player events differ from "
+                      f"jsvx's")
+
+
+def check_decoder_vs_oracle(label: str, data: bytes, dev) -> None:
+    oracle = [f.planes for f in decode_stream_oracle(data)]
+    for scan in (True, False):
+        got = decoder_frames(data, dev, scan)
+        check(len(got) == len(oracle), f"{label}: frame count")
+        worst = max(int(np.abs(p.astype(int) - q.astype(int)).max())
+                    for f, o in zip(got, oracle) for p, q in zip(f, o))
+        emit("decoder_oracle", stream=label, gop_batch=scan,
+             frames=len(got), max_abs_err_vs_oracle=worst)
+        check(worst <= 1, f"{label} Decoder: {worst} LSB from the oracle")
+
+
+def check_play_cli(path: str, n_frames: int, dev) -> dict:
+    """``python -m jsvx_torch play`` in a subprocess: exit 0, every frame
+    shown, ``ended``."""
+    out = subprocess.run(
+        [sys.executable, "-m", "jsvx_torch", "play", path, "--rgb",
+         "--rate", "8", "--device", str(dev)],
+        capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"play exited {out.returncode}: "
+                               f"{out.stderr[-2000:]}")
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    emit("play_cli", **{k: report[k] for k in (
+        "frames_shown", "ended", "wall_seconds", "display_fps", "device",
+        "error", "event_order")})
+    check(report["ended"] is True and report["frames_shown"] == n_frames,
+          f"play: {report}")
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: timing
 
 def sync(device) -> None:
@@ -433,6 +619,135 @@ def time_in_turns(name: str, kernel, plain, dev, card: str, plane: str,
     return t
 
 
+def decoder_rate(data: bytes, dev, scan: bool, card: str) -> dict:
+    """The streaming Decoder's frames/s over a whole buffered stream
+    (host clock, a run ends in a synchronise; median of N_E2E after a
+    warm-up) and its stages per run.  Parse is a stage of the GOP batch
+    only; picture by picture it is inside the rest of the run."""
+    wall, totals = [], {}
+    for rep in range(N_E2E + 1):
+        sync(dev)
+        t0 = time.perf_counter()
+        d = Decoder(PlayerConfig(use_gop_scan=scan), device=dev)
+        d.feed(0, data, total=len(data))
+        n_f = sum(1 for _ in d.iter_frames())
+        sync(dev)
+        if rep:
+            wall.append(time.perf_counter() - t0)
+            for k, v in d.metrics.timers.totals.items():
+                totals[k] = totals.get(k, 0.0) + v / N_E2E
+    med = statistics.median(wall)
+    out = dict(card=card, gop_batch=scan, frames=n_f, median_s=med,
+               frames_per_s=n_f / med, reps=N_E2E,
+               wall_s_runs=[min(wall), max(wall)], stage_s_per_run=totals,
+               rest_s_per_run=med - sum(totals.values()))
+    emit("decoder_end_to_end", **out,
+         what="feed the whole stream, iter_frames; frames stay on the card")
+    return out
+
+
+def decoder_view_copies(data: bytes, dev, card: str) -> dict:
+    """jsvx's Decoder builds a ``BitReader`` over ``view.tobytes()`` of the
+    buffered view once per start code it handles, copying the view each
+    time.  Counts the copies and their bytes in one run of each path, and
+    times a copy the size of the stream (host clock, median of
+    N_TIMED)."""
+    import jsvx_torch.api.decoder as port_decoder
+
+    real = jsvx.api.decoder.BitReader
+    out = {}
+    for scan in (True, False):
+        sizes = []
+
+        def counting(buf, *a, **k):
+            sizes.append(len(buf))
+            return real(buf, *a, **k)
+
+        jsvx.api.decoder.BitReader = port_decoder.BitReader = counting
+        try:
+            decoder_frames(data, dev, scan)
+        finally:
+            jsvx.api.decoder.BitReader = port_decoder.BitReader = real
+        out["gop_batch" if scan else "per_picture"] = dict(
+            copies=len(sizes), bytes=sum(sizes))
+    view = np.frombuffer(data, np.uint8)
+    times = []
+    for _ in range(N_TIMED):
+        t0 = time.perf_counter()
+        view.tobytes()
+        times.append(time.perf_counter() - t0)
+    rate = len(data) / statistics.median(times)
+    for v in out.values():
+        v["est_copy_ms"] = v["bytes"] / rate * 1e3
+    emit("decoder_view_copies", card=card, stream_bytes=len(data),
+         copy_ms_whole_stream=statistics.median(times) * 1e3,
+         copy_gb_s=rate / 1e9, **out)
+    return out
+
+
+def player_rate(data: bytes, dev, card: str) -> dict:
+    """The Player with RGB output from ``src`` to ``ended`` under a
+    virtual clock, each RGB frame copied to the host by the sink (host
+    clock; median of N_E2E after a warm-up)."""
+    wall = []
+    for rep in range(N_E2E + 1):
+        shown = []
+        sync(dev)
+        t0 = time.perf_counter()
+        p = Player(PlayerConfig(emit_rgb=True), device=dev)
+        p.set_frame_sink(lambda rgb, t: shown.append(rgb.cpu()))
+        p.src = data
+        p.play()
+        t = 0.0
+        while not p.ended and t < 60.0:
+            t += 1 / 30.0
+            p.tick(t)
+        sync(dev)
+        if rep:
+            wall.append(time.perf_counter() - t0)
+        check(p.ended, "the Player did not reach ended")
+    med = statistics.median(wall)
+    out = dict(card=card, frames=len(shown), median_s=med,
+               frames_per_s=len(shown) / med, reps=N_E2E,
+               wall_s_runs=[min(wall), max(wall)],
+               rgb_bytes_per_frame=shown[0].numel())
+    emit("player_end_to_end", **out,
+         what="src -> ended, virtual clock, emit_rgb, RGB to host per frame")
+    return out
+
+
+def colour_time(data: bytes, dev, card: str) -> dict:
+    """Colour conversion of one 1080p frame on the card: device time
+    (CUDA events behind a spin, median of N_TIMED), per call with the
+    host in the loop, and with the RGB frame copied to the host as the
+    Player's sink would (host clock, median of N_TIMED)."""
+    d = Decoder(PlayerConfig(), device=dev)
+    d.feed(0, data, total=len(data))
+    y, cb, cr = d.decode_frame().planes[:3]
+    h, w = d.meta.height, d.meta.width
+
+    def colour():
+        return ycbcr_to_rgb(y, cb, cr)[:h, :w]
+
+    dev_t, cov, host = device_ms(colour, dev, 4)
+    call = call_ms(colour, dev)
+    to_host = []
+    for _ in range(N_TIMED):
+        t0 = time.perf_counter()
+        colour().cpu()
+        to_host.append((time.perf_counter() - t0) * 1e3)
+    px = y.numel()
+    out = dict(card=card, shape=list(y.shape), device_ms=statistics.median(
+        dev_t), call_ms=statistics.median(call),
+        with_copy_to_host_ms=statistics.median(to_host), host_ahead_share=cov,
+        host_enqueue_ms_x4=host, min_bytes=px * 3 // 2 + px * 3,
+        reps=N_TIMED)
+    out["achieved_gb_s"] = out["min_bytes"] / (out["device_ms"] * 1e-3) / 1e9
+    emit("colour_time", **out,
+         what="ycbcr_to_rgb, torch ops (about 25 elementwise kernels)")
+    return out
+
+
 def smoke(dev: torch.device) -> None:
     t_start = time.perf_counter()
 
@@ -516,6 +831,15 @@ def smoke(dev: torch.device) -> None:
                lambda d, impl: collect(dirty, d, impl)[0], dev, 3)
     check_vs_oracle("cif-352x288", cif, dev, "two_kernel")
     check_vs_oracle("yuva-128x96", yuva, dev, "two_kernel")
+
+    # playback: the streaming Decoder and the Player
+    check_decoder("1080p", data_1080, dev, n_planes,
+                  stream_frames(data_1080, dev, "fused"))
+    check_player("1080p", data_1080, dev, n_planes)
+    check_player("yuva-128x96", yuva, dev, 4)
+    check_player_events_vs_jsvx("yuva-128x96", yuva, dev)
+    check_decoder_vs_oracle("320x320-256mv", hm, dev)
+    check_play_cli(fix, res.n_frames, dev)
 
     # ---- 5. timing ----------------------------------------------------------
     meta, seq, g, wire, spec, dense = dense_gop(data_1080, 0, dev)
@@ -645,6 +969,12 @@ def smoke(dev: torch.device) -> None:
                               for k, v in m.timers.totals.items()},
              what="parse_all + pack + one copy per GOP + GOP decode; "
                   "frames stay on the card")
+
+    for scan in (True, False):
+        decoder_rate(data_1080, dev, scan, card)
+    decoder_view_copies(data_1080, dev, card)
+    player_rate(data_1080, dev, card)
+    colour_time(data_1080, dev, card)
 
     check("jax" not in sys.modules, "JAX was imported")
     emit("done", seconds=time.perf_counter() - t_start)

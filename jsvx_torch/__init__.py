@@ -14,6 +14,10 @@ tables (``jsvx.coding``), the fixture encoder and float64 oracle
   the GOP loop, :func:`transcode` (the batch entry point) and
   :class:`StreamDecoder` (the whole-stream decode behind
   ``python -m jsvx_torch decode``).
+* ``jsvx_torch.api``      — :class:`Decoder` and :class:`Player`, jsvx's
+  streaming API with its device methods on torch (behind
+  ``python -m jsvx_torch play``).
+* ``jsvx_torch.kernels.color`` — display colour (YCbCr -> RGB).
 """
 
 __version__ = "0.1.0"
@@ -29,4 +33,8 @@ def __getattr__(name):
         from .pipeline.stream import StreamDecoder
 
         return StreamDecoder
+    if name in ("Player", "Decoder", "PlayerConfig"):
+        from . import api
+
+        return getattr(api, name)
     raise AttributeError(f"module 'jsvx_torch' has no attribute {name!r}")

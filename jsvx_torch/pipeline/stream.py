@@ -23,11 +23,52 @@ from jsvx.coding import tables as T
 from jsvx.runtime.profiler import Metrics
 
 from ..kernels.decode import frame_to_device, make_constants
-from .gop import (decode_gop_wire, frame_at, frame_decoder,
-                  stack_device_frames, zero_refs)
+from .gop import (decode_gop, frame_at, frame_decoder, stack_device_frames,
+                  zero_refs)
 from .packed_parse import BufferPool
 from .transcode import pack, synchronize, to_device
 from .wire import unflatten_wire
+
+
+def decode_group(fts: list, refs: tuple, consts, device: torch.device, *,
+                 quirk: bool = False, impl: str = "fused",
+                 use_gop_scan: bool = True, pool: BufferPool | None = None,
+                 metrics: Metrics | None = None) -> tuple:
+    """Decode a group of parsed pictures on ``device`` through one dense
+    wire; returns (a (Y, Cb, Cr[, A]) tuple of uint8 planes per picture,
+    the last picture's planes as the next reference).
+
+    The pictures are packed with ``frame_to_device``, stacked, packed into
+    one pooled buffer and copied to ``device`` once.  ``use_gop_scan``
+    decodes them with the GOP loop (``decode_gop``); ``False``
+    decodes them one after the other, each from the reference before it,
+    through the per-frame decode of ``impl``.  Returns once the planes
+    are complete.  Stages ``pack``, ``h2d``, ``device_decode`` go to
+    ``metrics``.
+    """
+    pool = pool or BufferPool()
+    metrics = metrics or Metrics()
+    with metrics.timers.stage("pack"):
+        spec, buf = pack(stack_device_frames(
+            [frame_to_device(ft) for ft in fts]), pool)
+    with metrics.timers.stage("h2d"):
+        wire = to_device(buf, device)
+    pool.release(buf)
+    with metrics.timers.stage("device_decode"):
+        stacked = unflatten_wire(wire, spec)
+        if use_gop_scan:
+            outs, refs = decode_gop(stacked, refs, consts, quirk, impl)
+            frames = [tuple(p[i] for p in outs) for i in range(len(fts))]
+        else:
+            decode_frame = frame_decoder(impl)
+            frames = []
+            for i in range(len(fts)):
+                refs = decode_frame(frame_at(stacked, i), refs, consts,
+                                    quirk)
+                frames.append(refs)
+        synchronize(device)
+    metrics.count("frames", len(fts))
+    return frames, refs
 
 
 @dataclass
@@ -78,7 +119,7 @@ class StreamDecoder:
         pictures) per wire through the GOP loop; ``False`` ships and
         decodes one picture at a time through the same ``impl``."""
         impl = impl or "fused"
-        decode_frame = frame_decoder(impl)
+        frame_decoder(impl)              # reject an unknown impl early
         metrics = metrics or Metrics()
         dev = self.device
         with metrics.timers.stage("parse"):
@@ -102,26 +143,11 @@ class StreamDecoder:
         pool = BufferPool()
         frames = []
         for group in groups:
-            with metrics.timers.stage("pack"):
-                spec, buf = pack(stack_device_frames(
-                    [frame_to_device(ft) for ft in group]), pool)
-            with metrics.timers.stage("h2d"):
-                wire = to_device(buf, dev)
-            pool.release(buf)
-            with metrics.timers.stage("device_decode"):
-                if use_gop_scan:
-                    outs, refs = decode_gop_wire(
-                        wire, spec, refs, consts, seq.mb_height,
-                        seq.mb_width, self.quirk, impl)
-                    frames.extend(tuple(p[i] for p in outs)
-                                  for i in range(len(group)))
-                else:
-                    refs = decode_frame(frame_at(unflatten_wire(wire, spec),
-                                                 0), refs, consts,
-                                        self.quirk)
-                    frames.append(refs)
-                synchronize(dev)
-            metrics.count("frames", len(group))
+            outs, refs = decode_group(group, refs, consts, dev,
+                                      quirk=self.quirk, impl=impl,
+                                      use_gop_scan=use_gop_scan, pool=pool,
+                                      metrics=metrics)
+            frames.extend(outs)
         return StreamResult(frames=frames,
                             picture_types=[f.picture_type for f in fts],
                             width=self.meta.width, height=self.meta.height,

@@ -154,15 +154,16 @@ def test_kernel_matches_plain_on_the_card():
 
 def test_port_never_imports_jax():
     """Importing every module of the port and decoding a clip on the CPU,
-    through both routes, both wires and the stream decoder, loads no JAX
-    (the card's machine has none)."""
+    through both routes, both wires, the stream decoder and the Player
+    (with RGB), loads no JAX (the card's machine has none)."""
     code = """
 import sys
 import numpy as np
 import jsvx_torch
 import jsvx_torch.__main__
-from jsvx_torch.kernels import carry, mc, recon
+from jsvx_torch.kernels import carry, color, mc, recon
 from jsvx_torch.pipeline import gop, packed_parse, stream
+from jsvx_torch.api import Player, PlayerConfig
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx.tools.encoder import EncoderConfig, JsvEncoder
 yy, xx = np.mgrid[0:32, 0:48]
@@ -177,6 +178,16 @@ for impl in ("fused", "two_kernel"):
                                 quirk_oddify_zeros=True).n_frames == 4
     out = jsvx_torch.StreamDecoder(data, device="cpu").decode(impl=impl)
     assert len(out.frames) == 4
+p = Player(PlayerConfig(emit_rgb=True), device="cpu")
+shown = []
+p.set_frame_sink(lambda rgb, t: shown.append(tuple(rgb.shape)))
+p.src = data
+p.play()
+t = 0.0
+while not p.ended and t < 2.0:
+    t += 1 / 30.0
+    p.tick(t)
+assert p.ended and shown == [(32, 48, 3)] * 4, shown
 assert "jax" not in sys.modules, "jax was imported"
 print("ok")
 """
