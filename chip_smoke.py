@@ -7,17 +7,22 @@ Run from the root of a checkout, on a machine with an NVIDIA Hopper card
 each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
-2. the build of ``jsvx_torch/csrc/`` into ``build/jsvx_torch/``;
+2. the build of ``jsvx_torch/csrc/`` into ``build/jsvx_torch/`` (with the
+   ptxas register and spill report);
 3. each kernel against its plain PyTorch version on the same CUDA
    tensors, required bit-equal (0 differing pixels): the fused decode
-   kernel, and the MC and reconstruction kernels of the two-kernel route,
-   on every frame and plane of GOP 0 of the 1080p bench fixture, one frame
-   with the oddify-zeros quirk, and both GOPs of a 320x320 stream with 256
-   distinct motion vectors in one P frame; the MC kernel also on the
-   tall-pad and out-of-bounds clamp cases of ``tests/test_fast_paths.py``;
+   kernel (one launch per picture), also against its first design
+   (``csrc/fused_decode_baseline.cu``, one launch per plane), and the MC
+   and reconstruction kernels of the two-kernel route, whose output must
+   equal the fused kernel's; on every frame and plane of GOP 0 of the
+   1080p fixture, one frame with the oddify-zeros quirk, both GOPs of a
+   320x320 stream with 256 distinct motion vectors in one P frame, a
+   48x64 stream whose first GOP only the dense wire can carry, a CIF
+   stream and a 4-plane YUVA stream; the MC kernel also on the tall-pad
+   and out-of-bounds clamp cases of ``tests/test_fast_paths.py``;
 4. the paths end to end on the card, each kernel counted:
    ``jsvx_torch.transcode`` of the 1080p fixture (the fused kernel once
-   per frame and plane), bit-equal to the same call on the CPU;
+   per picture), bit-equal to the same call on the CPU;
    ``StreamDecoder(...).decode(impl="two_kernel")`` (the MC and
    reconstruction kernels once per frame and plane each), bit-equal to the
    CPU and to ``impl="fused"`` on the card; the same three checks for
@@ -25,20 +30,24 @@ each printing its own lines:
    stream whose GOP falls back to the dense wire; CIF and YUVA streams
    through both routes within 1 LSB of the float64 oracle;
    playback: the streaming ``Decoder`` (GOP batch and picture by
-   picture; the fused kernel once per frame and plane in each) bit-equal
-   to ``StreamDecoder`` on the card and to the CPU, with a seek and with
-   the quirk; the ``Player`` with RGB output driven to ``ended`` by a
-   virtual clock, its RGB bit-equal to the CPU's and within 1 LSB of
-   ``refmath``; the YUVA stream's alpha through the Player, the
-   256-vector stream through the Decoder, and ``python -m jsvx_torch
-   play`` in a subprocess;
+   picture; the fused kernel once per picture in each) bit-equal to
+   ``StreamDecoder`` on the card and to the CPU, with a seek and with the
+   quirk; the ``Player`` with RGB output driven to ``ended`` by a virtual
+   clock, its RGB bit-equal to the CPU's and within 1 LSB of ``refmath``;
+   the YUVA stream's alpha through the Player, the 256-vector stream
+   through the Decoder, and ``python -m jsvx_torch play`` in a subprocess;
 5. timings (CUDA events, median of 30 after warm-up; host clock for the
-   end-to-end runs), each with the card's name and power limit.
+   end-to-end runs), each with the card's name and power limit: the fused
+   kernel per 1080p picture, warm in L2 and with L2 flushed between calls,
+   in turns with its first design, beside the bytes it must move and its
+   bound; the MC and reconstruction kernels per plane; the GOP decode,
+   ``transcode``, ``StreamDecoder``, the Decoder, the Player and colour.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
 exit, no result line); without a CUDA card it exits non-zero at once.
-JAX is never imported.
+Nothing of JAX, of the ``jsvx`` package or of ``bench.py`` is imported:
+the port's own encoder, oracle and fixture make and check the streams.
 """
 
 from __future__ import annotations
@@ -52,12 +61,6 @@ import time
 import numpy as np
 import torch
 
-import bench
-import jsvx.api.decoder
-from jsvx.api.player import Player as JsvxPlayer
-from jsvx.tools import EncoderConfig, JsvEncoder, decode_stream_oracle, psnr
-from jsvx.tools.refmath import ycbcr_to_rgb as ref_rgb
-from jsvx.runtime.profiler import Metrics
 from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.kernels import build, fused, mc, recon
 from jsvx_torch.kernels.color import ycbcr_to_rgb
@@ -67,10 +70,15 @@ from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
 from jsvx_torch.kernels.expand import expand_compact_gop
 from jsvx_torch.pipeline.gop import decode_gop_wire, frame_at, zero_refs
 from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
-                                              walk_stream)
+                                              parse_gop_packed, walk_stream)
 from jsvx_torch.pipeline.stream import StreamDecoder
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx_torch.pipeline.wire import flatten_wire, unflatten_wire, wire_spec
+from jsvx_torch.runtime.profiler import Metrics
+from jsvx_torch.tools import (EncoderConfig, JsvEncoder,
+                              decode_stream_oracle, psnr)
+from jsvx_torch.tools.fixture import ensure_fixture, zoom_clip
+from jsvx_torch.tools.refmath import ycbcr_to_rgb as ref_rgb
 
 KERNEL_SOURCE = "jsvx_torch/csrc/fused_decode.cu"
 KERNEL_REPLACES = "jsvx/kernels/pallas_fused.py:51"
@@ -81,6 +89,18 @@ RECON_REPLACES = "jsvx/kernels/pallas_decode.py:78"
 N_TIMED = 30
 N_E2E = 10
 SLEEP_MS = 25.0
+#: H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s outside
+#: the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+#: f32 operations per pixel of the IDCT (two passes of 8 multiplies and 7
+#: adds) and the prediction add
+FLOP_PER_CODED_PIXEL = 31
+#: bytes written between two calls of a cold timing: past the 50 MB L2
+FLUSH_BYTES = 64 << 20
+NO_LIBRARY = ("no PyTorch call computes it: F.grid_sample does not round "
+              "the half-pel taps as MPEG-1 does, and a matmul IDCT sums in "
+              "its own order, possibly in TF32")
 
 
 def emit(phase: str, **fields) -> None:
@@ -101,10 +121,10 @@ def run(cmd: list[str]) -> str:
 # Streams
 
 def yuva_clip(n: int, h: int, w: int) -> list:
-    """The bench's zooming pattern plus a moving alpha plane."""
+    """The fixture's zooming pattern plus a moving alpha plane."""
     yy, xx = np.mgrid[0:h, 0:w]
     out = []
-    for t, (y, cb, cr) in enumerate(bench._zoom_clip(h, w, n, seed=5)):
+    for t, (y, cb, cr) in enumerate(zoom_clip(h, w, n, seed=5)):
         a = np.clip(128 + 80 * np.sin(2 * np.pi * (xx + 5 * t) / w)
                     + 40 * (yy > 4 * t), 0, 255).astype(np.uint8)
         out.append((y, cb, cr, a))
@@ -114,7 +134,7 @@ def yuva_clip(n: int, h: int, w: int) -> list:
 def high_motion_stream() -> bytes:
     """20x20 macroblocks, GOP 2: the first P frame moves its interior by
     (2, 2), the second carries 256 distinct vectors (the stream of
-    tests/test_high_motion.py, on the bench's pattern)."""
+    tests/test_high_motion.py, on the fixture's pattern)."""
     mbs = 20
     enc = JsvEncoder(mbs * 16, mbs * 16, EncoderConfig(
         gop_size=2, quantizer_scale=8, f_code=3, intra_sad_threshold=1e9,
@@ -133,15 +153,15 @@ def high_motion_stream() -> bytes:
         return mv
 
     enc._motion_search = forced
-    return enc.encode(bench._zoom_clip(mbs * 16, mbs * 16, 4, seed=11))
+    return enc.encode(zoom_clip(mbs * 16, mbs * 16, 4, seed=11))
 
 
 def dirty_stream() -> bytes:
     """Three 48x64 frames whose first picture carries its first slice
     twice: overlapping slices, a GOP the compact wire cannot express (the
-    stream of tests/test_compact_wire.py, on the bench's pattern)."""
+    stream of tests/test_compact_wire.py, on the fixture's pattern)."""
     raw = JsvEncoder(64, 48, EncoderConfig(gop_size=3, quantizer_scale=4)) \
-        .encode(bench._zoom_clip(48, 64, 3, seed=13))
+        .encode(zoom_clip(48, 64, 3, seed=13))
     pic = raw.find(b"\x00\x00\x01\x00")
     s0 = raw.find(b"\x00\x00\x01\x01", pic)
     check(pic >= 0 and s0 > 0, "no first slice found")
@@ -160,46 +180,75 @@ def dirty_stream() -> bytes:
     return data
 
 
-def dense_gop(data: bytes, gi: int, device):
-    """Parse GOP ``gi``, pack its wire, copy it to ``device``, expand."""
+def gop_on_card(data: bytes, gi: int, device):
+    """GOP ``gi`` on ``device`` as the decode takes it: parsed to the
+    compact wire and expanded, or, for a GOP only the dense wire can
+    carry, parsed to the dense wire.  Returns (meta, seq, the parsed GOP,
+    the wire on the card, its spec, the stacked dense GOP)."""
     arr = np.frombuffer(data, np.uint8)
     meta, seq, groups = walk_stream(data)
     g = parse_gop_compact(arr, groups[gi], seq, meta, BufferPool(), {})
-    check(not g.dirty, f"GOP {gi} is dirty")
+    if g.dirty:
+        g = parse_gop_packed(arr, groups[gi], seq, meta)
     spec = wire_spec(g.stacked)
     wire = torch.from_numpy(flatten_wire(g.stacked, spec)).to(device)
-    dense = expand_compact_gop(unflatten_wire(wire, spec), seq.mb_height,
-                               seq.mb_width)
+    dense = unflatten_wire(wire, spec)
+    if "coef" in dense:
+        dense = expand_compact_gop(dense, seq.mb_height, seq.mb_width)
     return meta, seq, g, wire, spec, dense
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: kernel vs plain
 
+def baseline_plane(c: dict, ref: torch.Tensor, is_p: torch.Tensor, consts,
+                   chroma: bool, quirk: bool = False,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """One plane through the fused kernel's first design
+    (``csrc/fused_decode_baseline.cu``), which nothing else launches."""
+    h, w = ref.shape
+    out = torch.empty_like(ref) if out is None else out
+    rc = build.load().lib.jsvx_fused_decode_plane_baseline(
+        c["levels"].data_ptr(), c["lnz"].data_ptr(), c["q"].data_ptr(),
+        c["intra"].data_ptr(), c["mv"].data_ptr(), c["rep_add"].data_ptr(),
+        ref.data_ptr(), is_p.data_ptr(), consts.qtab.data_ptr(),
+        consts.c_basis.data_ptr(), out.data_ptr(), h, w, int(chroma),
+        int(quirk), ref.device.index or 0,
+        torch.cuda.current_stream(ref.device).cuda_stream)
+    check(rc == 0, f"baseline fused kernel launch failed: cudaError_t {rc}")
+    return out
+
+
 def kernels_vs_plain(label: str, data: bytes, gi: int, device,
                      quirk_frames=()) -> dict:
     """Every frame and plane of GOP ``gi`` through each kernel and its
-    plain version on the same CUDA tensors: the fused decode kernel, and
-    the two-kernel route's MC and reconstruction kernels, whose output
-    must also equal the fused kernel's.  The kernels' output carries as
-    the next frame's reference.  Returns the max |kernel - plain| of
-    each kernel."""
-    meta, seq, g, _, _, dense = dense_gop(data, gi, device)
+    plain version on the same CUDA tensors: the fused decode kernel (one
+    launch for the picture), against the plain version and against its
+    first design plane by plane, and the two-kernel route's MC and
+    reconstruction kernels, whose output must also equal the fused
+    kernel's.  The kernels' output carries as the next frame's reference.
+    Returns the max |kernel - plain| of each kernel."""
+    meta, seq, _, _, _, dense = gop_on_card(data, gi, device)
+    n_frames = int(dense["is_p"].shape[0])
     consts = make_constants(seq, device)
     refs = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
                      device)
     worst = {"fused": 0, "mc": 0, "recon": 0}
-    for i in range(len(g.hdrs)):
+    for i in range(n_frames):
         frame = frame_at(dense, i)
         is_p = frame["is_p"]
         for quirk in sorted({False, i in quirk_frames}):
-            planes = []
+            before = fused.launches
+            picture = fused.decode_frame_planes_fused(frame, refs, consts,
+                                                      quirk)
+            check(fused.launches == before + 1,
+                  f"{label}: {fused.launches - before} fused launches for "
+                  f"one picture")
             for ci, key in enumerate(frame_comp_keys(frame)):
-                c, chroma = frame[key], comp_is_chroma(ci)
-                fk = fused.fused_decode_plane(c, refs[ci], is_p, consts,
-                                              chroma, quirk)
+                c, chroma, fk = frame[key], comp_is_chroma(ci), picture[ci]
                 fp = decode_frame_plane(c, refs[ci], is_p, consts, chroma,
                                         quirk)
+                fb = baseline_plane(c, refs[ci], is_p, consts, chroma, quirk)
                 pk = mc.predict_plane_mc(refs[ci], c["mv"], c["rep_add"],
                                          chroma)
                 pp = predict_plane(refs[ci], c["mv"], c["rep_add"],
@@ -211,8 +260,8 @@ def kernels_vs_plain(label: str, data: bytes, gi: int, device,
                                        consts, quirk)
                 sync(device)
                 n_diff = {name: int((k != p).sum()) for name, k, p in (
-                    ("fused", fk, fp), ("mc", pk, pp), ("recon", rk, rp),
-                    ("route", rk, fk))}
+                    ("fused", fk, fp), ("baseline", fk, fb), ("mc", pk, pp),
+                    ("recon", rk, rp), ("route", rk, fk))}
                 err = {name: int((k.int() - p.int()).abs().max())
                        for name, k, p in (("fused", fk, fp), ("mc", pk, pp),
                                           ("recon", rk, rp))}
@@ -221,6 +270,7 @@ def kernels_vs_plain(label: str, data: bytes, gi: int, device,
                              is_p=int(is_p))
                 emit("kernel_vs_plain", **where,
                      mismatching_pixels=n_diff["fused"],
+                     vs_first_design_mismatching_pixels=n_diff["baseline"],
                      max_abs_err=err["fused"])
                 emit("two_kernel_vs_plain", **where,
                      mc_mismatching_pixels=n_diff["mc"],
@@ -232,9 +282,8 @@ def kernels_vs_plain(label: str, data: bytes, gi: int, device,
                       f"{label} frame {i} plane {key} quirk={quirk}: "
                       f"pixels differ {n_diff}")
                 worst = {k: max(v, err[k]) for k, v in worst.items()}
-                planes.append(fk)
             if not quirk:
-                decoded = tuple(planes)
+                decoded = picture
         refs = decoded
     return worst
 
@@ -332,7 +381,8 @@ def mismatching_pixels(a: list, b: list) -> int:
 def check_path(label: str, run, device, n_planes: int) -> dict:
     """One path through ``impl="two_kernel"`` on the card (the MC and the
     reconstruction kernel once per frame and plane each, the fused kernel
-    never), through ``impl="fused"`` on the card, and through
+    never), through ``impl="fused"`` on the card (the fused kernel once per
+    picture), and through
     ``"two_kernel"`` on the CPU: all three bit-equal.  ``run(device,
     impl)`` returns the decoded frames as numpy.  Returns the two-kernel
     run's launch counts."""
@@ -344,13 +394,13 @@ def check_path(label: str, run, device, n_planes: int) -> dict:
                                                                      cpu)
     emit("path", path=label, frames=n_f, planes=n_planes,
          two_kernel_launches=n_two, fused_launches=n_fz,
-         expected_launches=n_f * n_planes,
+         expected_launches={"two_kernel": n_f * n_planes, "fused": n_f},
          vs_fused_on_card_mismatching_pixels=d_fused,
          vs_cpu_mismatching_pixels=d_cpu)
     check(n_two == {"fused": 0, "mc": n_f * n_planes,
                     "recon": n_f * n_planes} and n_f > 0,
           f"{label}: launches {n_two} for {n_f} frames x {n_planes} planes")
-    check(n_fz == {"fused": n_f * n_planes, "mc": 0, "recon": 0},
+    check(n_fz == {"fused": n_f, "mc": 0, "recon": 0},
           f"{label}: fused route launches {n_fz}")
     check(d_fused == 0, f"{label}: two-kernel and fused routes differ on "
                         f"the card in {d_fused} pixels")
@@ -412,7 +462,7 @@ def play(data: bytes, player) -> tuple[list, list, list]:
 def check_decoder(label: str, data: bytes, dev, n_planes: int,
                   straight: list | None) -> None:
     """The Decoder on the card, GOP batch and picture by picture: the
-    fused kernel once per frame and plane, bit-equal to ``straight``
+    fused kernel once per picture, bit-equal to ``straight``
     (``StreamDecoder`` on the card) and to the Decoder on the CPU; then
     with a seek to GOP 1 and with the quirk, each bit-equal to the CPU."""
     cpu = decoder_frames(data, torch.device("cpu"), True)
@@ -423,10 +473,10 @@ def check_decoder(label: str, data: bytes, dev, n_planes: int,
                     if straight is not None else None)
         d_cpu = mismatching_pixels(got, cpu)
         emit("decoder", stream=label, gop_batch=scan, frames=n_f,
-             planes=n_planes, launches=n, expected_fused=n_f * n_planes,
+             planes=n_planes, launches=n, expected_fused=n_f,
              vs_stream_decoder_mismatching_pixels=d_stream,
              vs_cpu_mismatching_pixels=d_cpu)
-        check(n == {"fused": n_f * n_planes, "mc": 0, "recon": 0},
+        check(n == {"fused": n_f, "mc": 0, "recon": 0},
               f"{label} Decoder gop_batch={scan}: launches {n}")
         check(not d_stream and d_cpu == 0,
               f"{label} Decoder gop_batch={scan}: differs from the stream "
@@ -447,7 +497,7 @@ def check_decoder(label: str, data: bytes, dev, n_planes: int,
              vs_cpu_mismatching_pixels=d_cpu,
              vs_plain_decode_mismatching_pixels=mismatching_pixels(got,
                                                                    cpu))
-        check(n["fused"] == len(got) * n_planes and d_cpu == 0,
+        check(n["fused"] == len(got) and d_cpu == 0,
               f"{label} quirk gop_batch={scan}: launches {n}, {d_cpu} "
               f"pixels differ from the CPU")
 
@@ -478,7 +528,7 @@ def check_player(label: str, data: bytes, dev, n_planes: int) -> dict:
         rgb[0].shape), launches=n, vs_cpu_mismatching_values=d_cpu,
          max_abs_err_vs_refmath=worst, events_equal_cpu=ev == ev_c,
          first_event=names[0], last_event=names[-1])
-    check(n["fused"] == n_f * n_planes and n_f > 0,
+    check(n["fused"] == n_f and n_f > 0,
           f"{label} Player: launches {n} for {n_f} frames")
     check(ev == ev_c and names[0] == "loadstart" and names[-1] == "ended",
           f"{label} Player: events differ from the CPU's or out of order")
@@ -488,17 +538,6 @@ def check_player(label: str, data: bytes, dev, n_planes: int) -> dict:
     check(rgb[0].shape[-1] == (4 if n_planes == 4 else 3),
           f"{label} Player: RGB shape {rgb[0].shape}")
     return {"events": ev, "frames": n_f, "launches": n}
-
-
-def check_player_events_vs_jsvx(label: str, data: bytes, dev) -> None:
-    """The port's Player on the card gives jsvx's own Player's events and
-    ready states (its float64 oracle backend, no JAX) on ``data``."""
-    ev, _, _ = play(data, Player(PlayerConfig(emit_rgb=True), device=dev))
-    ev_j, _, _ = play(data, JsvxPlayer(PlayerConfig(), backend="oracle"))
-    emit("player_vs_jsvx", stream=label, events=len(ev),
-         events_equal=ev == ev_j)
-    check(ev == ev_j, f"{label}: the port's Player events differ from "
-                      f"jsvx's")
 
 
 def check_decoder_vs_oracle(label: str, data: bytes, dev) -> None:
@@ -619,6 +658,167 @@ def time_in_turns(name: str, kernel, plain, dev, card: str, plane: str,
     return t
 
 
+def cold_ms(fn, device) -> list[float]:
+    """Device time per call with L2 cold: before each call a FLUSH_BYTES
+    write evicts the 50 MB L2, and CUDA events bracket the call alone.
+    A spin kernel ahead of each flush holds the stream while the host
+    enqueues flush, events and call, so no host gap falls between the
+    events."""
+    scratch = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=device)
+    for _ in range(3):
+        fn()
+    sync(device)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    cycles = 1_000_000
+    for _ in range(2):                     # calibrate a 2 ms spin
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        e1.synchronize()
+        cycles = int(cycles * 2.0 / e0.elapsed_time(e1))
+    times = []
+    for rep in range(N_TIMED):
+        torch.cuda._sleep(cycles)
+        scratch.fill_(rep & 0xFF)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return times
+
+
+def tap_footprint(c: dict, h: int, w: int, chroma: bool) -> int:
+    """Distinct reference bytes the half-pel taps of a plane's predicted
+    blocks read (each tap clamped to the plane): the union of the blocks'
+    windows, counted with a 2-D difference array."""
+    mv = c["mv"].cpu().numpy().astype(np.int64)
+    pred = c["rep_add"].cpu().numpy() == 0
+    mvy, mvx = mv[..., 0], mv[..., 1]
+    if chroma:                               # truncation toward zero
+        mvy, mvx = np.fix(mvy / 2).astype(np.int64), \
+            np.fix(mvx / 2).astype(np.int64)
+    by, bx = np.nonzero(pred)
+    if by.size == 0:
+        return 0
+    vy, vx = mvy[by, bx], mvx[by, bx]
+    y0 = np.clip(by * 8 + (vy >> 1), 0, h - 1)
+    y1 = np.clip(by * 8 + 7 + (vy >> 1) + (vy & 1), 0, h - 1)
+    x0 = np.clip(bx * 8 + (vx >> 1), 0, w - 1)
+    x1 = np.clip(bx * 8 + 7 + (vx >> 1) + (vx & 1), 0, w - 1)
+    diff = np.zeros((h + 1, w + 1), np.int32)
+    np.add.at(diff, (y0, x0), 1)
+    np.add.at(diff, (y0, x1 + 1), -1)
+    np.add.at(diff, (y1 + 1, x0), -1)
+    np.add.at(diff, (y1 + 1, x1 + 1), 1)
+    return int((diff.cumsum(0).cumsum(1)[:h, :w] > 0).sum())
+
+
+def picture_work(frame: dict) -> dict:
+    """What one picture's fused decode must move and compute, from this
+    picture's data: output 1 B and levels 2 B per pixel, 8 B of sideband
+    per block (lnz, q, intra, rep_add, two int16 vector components), and
+    the reference bytes the taps read; levels only for coded blocks (lnz
+    > 0 or intra) in ``bytes``, for every block in ``bytes_all_levels``;
+    31 f32 operations per pixel of a coded block."""
+    is_p = int(frame["is_p"]) != 0
+    out = dict(bytes=0, bytes_all_levels=0, flop=0, pixels=0)
+    for ci, key in enumerate(frame_comp_keys(frame)):
+        c = frame[key]
+        h, w = c["levels"].shape
+        coded = int(((c["lnz"] > 0) | (c["intra"] > 0)).sum()) * 64
+        ref = tap_footprint(c, h, w, comp_is_chroma(ci)) if is_p else 0
+        fixed = h * w + (h // 8) * (w // 8) * 8 + ref
+        out["bytes"] += fixed + 2 * coded
+        out["bytes_all_levels"] += fixed + 2 * h * w
+        out["flop"] += FLOP_PER_CODED_PIXEL * coded
+        out["pixels"] += h * w
+    return out
+
+
+def bound(work_bytes: int, flop: int) -> tuple[float, str]:
+    """The least time (ms) the card could take, and what sets it."""
+    t_bytes = work_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flop / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def fused_picture_times(label: str, data: bytes, dev, card: str) -> list:
+    """The fused kernel per picture of GOP 0 of ``data``: warm in L2
+    (back to back behind a spin) and with L2 flushed between calls, in
+    turns with its first design (three launches per picture): first
+    design, new, new, first design; the plain version; the bytes and
+    operations the picture needs and the bound.  One ``kernel_time`` line
+    per picture."""
+    meta, seq, _, _, _, dense = gop_on_card(data, 0, dev)
+    n_frames = int(dense["is_p"].shape[0])
+    consts = make_constants(seq, dev)
+    refs = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
+                     dev)
+    rows = []
+    for i in range(n_frames):
+        frame = frame_at(dense, i)
+        keys = frame_comp_keys(frame)
+        outs = tuple(torch.empty_like(r) for r in refs)
+
+        def new():
+            fused.decode_frame_planes_fused(frame, refs, consts, outs=outs)
+
+        def first():
+            for ci, key in enumerate(keys):
+                baseline_plane(frame[key], refs[ci], frame["is_p"], consts,
+                               comp_is_chroma(ci), out=outs[ci])
+
+        def plain():
+            for ci, key in enumerate(keys):
+                decode_frame_plane(frame[key], refs[ci], frame["is_p"],
+                                   consts, comp_is_chroma(ci))
+
+        f1, fc1 = device_ms(first, dev, 20)[0], cold_ms(first, dev)
+        n1, nc1 = device_ms(new, dev, 20)[0], cold_ms(new, dev)
+        n2, nc2 = device_ms(new, dev, 20)[0], cold_ms(new, dev)
+        f2, fc2 = device_ms(first, dev, 20)[0], cold_ms(first, dev)
+        pl = device_ms(plain, dev, 1)[0]
+        work = picture_work(frame)
+        b_ms, b_by = bound(work["bytes"], work["flop"])
+        b_all, _ = bound(work["bytes_all_levels"], work["flop"])
+        row = dict(ms=statistics.median(n1 + n2),
+                   cold_ms=statistics.median(nc1 + nc2),
+                   first_design_ms=statistics.median(f1 + f2),
+                   first_design_cold_ms=statistics.median(fc1 + fc2),
+                   plain_ms=statistics.median(pl), bound_ms=b_ms,
+                   bound_by=b_by, is_p=int(frame["is_p"]))
+        emit("kernel_time", kernel="fused_decode_picture", stream=label,
+             card=card, frame=i, is_p=row["is_p"],
+             shapes=[list(r.shape) for r in refs], launches_per_picture=1,
+             kernel_ms=row["ms"], kernel_cold_ms=row["cold_ms"],
+             kernel_ms_runs=[statistics.median(n1), statistics.median(n2)],
+             kernel_cold_ms_runs=[statistics.median(nc1),
+                                  statistics.median(nc2)],
+             first_design_ms=row["first_design_ms"],
+             first_design_cold_ms=row["first_design_cold_ms"],
+             first_design_ms_runs=[statistics.median(f1),
+                                   statistics.median(f2)],
+             first_design_launches_per_picture=len(keys),
+             plain_ms=row["plain_ms"], speedup_vs_first_design=(
+                 row["first_design_ms"] / row["ms"]),
+             bytes=work["bytes"], bytes_all_levels=work["bytes_all_levels"],
+             flop=work["flop"], bound_ms=b_ms,
+             bound_ms_all_levels=b_all, bound_by=b_by,
+             bound_share=b_ms / row["ms"],
+             bound_share_cold=b_ms / row["cold_ms"],
+             achieved_gb_s=work["bytes"] / (row["ms"] * 1e-3) / 1e9,
+             achieved_gb_s_cold=work["bytes"] / (row["cold_ms"] * 1e-3) / 1e9,
+             library_ms=None, library=NO_LIBRARY, reps=2 * N_TIMED,
+             l2="warm: back to back behind a spin; cold: a 64 MB write "
+                "before each call")
+        rows.append(row)
+        refs = fused.decode_frame_planes_fused(frame, refs, consts)
+    sync(dev)
+    return rows
+
+
 def decoder_rate(data: bytes, dev, scan: bool, card: str) -> dict:
     """The streaming Decoder's frames/s over a whole buffered stream
     (host clock, a run ends in a synchronise; median of N_E2E after a
@@ -647,14 +847,14 @@ def decoder_rate(data: bytes, dev, scan: bool, card: str) -> dict:
 
 
 def decoder_view_copies(data: bytes, dev, card: str) -> dict:
-    """jsvx's Decoder builds a ``BitReader`` over ``view.tobytes()`` of the
-    buffered view once per start code it handles, copying the view each
-    time.  Counts the copies and their bytes in one run of each path, and
-    times a copy the size of the stream (host clock, median of
-    N_TIMED)."""
+    """The Decoder builds a ``BitReader`` over ``view.tobytes()`` of the
+    buffered view once per start code it handles (as jsvx's does), copying
+    the view each time.  Counts the copies and their bytes in one run of
+    each path, and times a copy the size of the stream (host clock, median
+    of N_TIMED)."""
     import jsvx_torch.api.decoder as port_decoder
 
-    real = jsvx.api.decoder.BitReader
+    real = port_decoder.BitReader
     out = {}
     for scan in (True, False):
         sizes = []
@@ -663,11 +863,11 @@ def decoder_view_copies(data: bytes, dev, card: str) -> dict:
             sizes.append(len(buf))
             return real(buf, *a, **k)
 
-        jsvx.api.decoder.BitReader = port_decoder.BitReader = counting
+        port_decoder.BitReader = counting
         try:
             decoder_frames(data, dev, scan)
         finally:
-            jsvx.api.decoder.BitReader = port_decoder.BitReader = real
+            port_decoder.BitReader = real
         out["gop_batch" if scan else "per_picture"] = dict(
             copies=len(sizes), bytes=sum(sizes))
     view = np.frombuffer(data, np.uint8)
@@ -769,19 +969,29 @@ def smoke(dev: torch.device) -> None:
 
     # ---- 3. kernel vs plain -------------------------------------------------
     t0 = time.perf_counter()
-    fix = bench.ensure_fixture()
+    fix = ensure_fixture()
     with open(fix, "rb") as f:
         data_1080 = f.read()
     emit("fixture", path=fix, bytes=len(data_1080),
          seconds=time.perf_counter() - t0)
-    worst = kernels_vs_plain("1080p", data_1080, 0, dev, quirk_frames=(1,))
     hm = high_motion_stream()
-    _, _, g, _, _, _ = dense_gop(hm, 1, dev)
+    _, _, g, _, _, _ = gop_on_card(hm, 1, dev)
     n_mv = len(np.unique(g.stacked["mb"]["mv"][1].reshape(-1, 2), axis=0))
     emit("high_motion", distinct_mvs=n_mv)
     check(n_mv >= 256, f"{n_mv} distinct vectors, expected >= 256")
-    for gi in range(2):
-        w = kernels_vs_plain("320x320-256mv", hm, gi, dev)
+    dirty = dirty_stream()
+    cif = JsvEncoder(352, 288, EncoderConfig(
+        gop_size=6, quantizer_scale=6, me_range=8,
+        half_pel_refine=True)).encode(zoom_clip(288, 352, 12, seed=7))
+    yuva = JsvEncoder(128, 96, EncoderConfig(
+        gop_size=4, quantizer_scale=5, me_range=6,
+        half_pel_refine=True)).encode(yuva_clip(8, 96, 128))
+    worst = {"fused": 0, "mc": 0, "recon": 0}
+    for label, data, gi, quirk_frames in (
+            ("1080p", data_1080, 0, (1,)), ("320x320-256mv", hm, 0, ()),
+            ("320x320-256mv", hm, 1, ()), ("48x64-dirty", dirty, 0, ()),
+            ("cif-352x288", cif, 0, ()), ("yuva-128x96", yuva, 0, (1,))):
+        w = kernels_vs_plain(label, data, gi, dev, quirk_frames)
         worst = {k: max(v, w[k]) for k, v in worst.items()}
     worst["mc"] = max(worst["mc"], mc_edge_cases(dev))
 
@@ -793,10 +1003,9 @@ def smoke(dev: torch.device) -> None:
     n_planes = meta.n_components
     emit("transcode", device=str(dev), frames=res.n_frames, gops=res.n_gops,
          planes=n_planes, launches=launches,
-         expected_launches=res.n_frames * n_planes)
-    check(launches == res.n_frames * n_planes > 0,
-          f"{launches} kernel launches for {res.n_frames} frames x "
-          f"{n_planes} planes")
+         expected_launches=res.n_frames)
+    check(launches == res.n_frames > 0,
+          f"{launches} kernel launches for {res.n_frames} pictures")
     cpu_frames, _ = collect(data_1080, "cpu")
     n_diff = 0
     for fc, fh in zip(cuda_frames, cpu_frames):
@@ -808,13 +1017,7 @@ def smoke(dev: torch.device) -> None:
     emit("cuda_vs_cpu", frames=len(cuda_frames), mismatching_pixels=n_diff)
     check(n_diff == 0 and len(cuda_frames) == len(cpu_frames) == res.n_frames,
           f"CUDA and CPU transcode differ: {n_diff} pixels")
-    cif = JsvEncoder(352, 288, EncoderConfig(
-        gop_size=6, quantizer_scale=6, me_range=8,
-        half_pel_refine=True)).encode(bench._zoom_clip(288, 352, 12, seed=7))
     check_vs_oracle("cif-352x288", cif, dev)
-    yuva = JsvEncoder(128, 96, EncoderConfig(
-        gop_size=4, quantizer_scale=5, me_range=6,
-        half_pel_refine=True)).encode(yuva_clip(8, 96, 128))
     check_vs_oracle("yuva-128x96", yuva, dev)
 
     # the two-kernel route: the stream decoder is its main path
@@ -826,7 +1029,6 @@ def smoke(dev: torch.device) -> None:
                dev, n_planes)
     check_path("transcode_two_kernel",
                lambda d, impl: collect(data_1080, d, impl)[0], dev, n_planes)
-    dirty = dirty_stream()
     check_path("transcode_dirty_gop",
                lambda d, impl: collect(dirty, d, impl)[0], dev, 3)
     check_vs_oracle("cif-352x288", cif, dev, "two_kernel")
@@ -837,22 +1039,21 @@ def smoke(dev: torch.device) -> None:
                   stream_frames(data_1080, dev, "fused"))
     check_player("1080p", data_1080, dev, n_planes)
     check_player("yuva-128x96", yuva, dev, 4)
-    check_player_events_vs_jsvx("yuva-128x96", yuva, dev)
     check_decoder_vs_oracle("320x320-256mv", hm, dev)
     check_play_cli(fix, res.n_frames, dev)
 
     # ---- 5. timing ----------------------------------------------------------
-    meta, seq, g, wire, spec, dense = dense_gop(data_1080, 0, dev)
+    pictures = fused_picture_times("1080p", data_1080, dev, card)
+    fused_t = pictures[1]                  # the first P picture
+    check(fused_t["is_p"] == 1, "frame 1 of GOP 0 is not a P frame")
+    meta, seq, g, wire, spec, dense = gop_on_card(data_1080, 0, dev)
     consts = make_constants(seq, dev)
     refs = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
                      dev)
     f0 = frame_at(dense, 0)
-    refs = tuple(fused.fused_decode_plane(f0[k], refs[ci], f0["is_p"],
-                                          consts, comp_is_chroma(ci))
-                 for ci, k in enumerate(frame_comp_keys(f0)))
+    refs = fused.decode_frame_planes_fused(f0, refs, consts)
     f1 = frame_at(dense, 1)                 # a P frame
-    check(int(f1["is_p"]) == 1, "frame 1 of GOP 0 is not a P frame")
-    timing = {"fused": {}, "mc": {}, "recon": {}}
+    timing = {"mc": {}, "recon": {}}
     for ci, key in ((0, "y"), (1, "cb")):
         chroma, c, is_p = comp_is_chroma(ci), f1[key], f1["is_p"]
         shape = list(refs[ci].shape)
@@ -860,29 +1061,30 @@ def smoke(dev: torch.device) -> None:
         mult, flags = recon.expand_sideband(c, consts)
         pred = mc.predict_plane_mc(refs[ci], c["mv"], c["rep_add"], chroma)
         cases = {
-            # bytes each kernel must move: levels 2 B + out 1 B per pixel,
-            # at least one reference tap 1 B, the per-block sideband 1/64th
-            "fused": (lambda: fused.fused_decode_plane(
-                c, refs[ci], is_p, consts, chroma),
-                lambda: decode_frame_plane(c, refs[ci], is_p, consts,
-                                           chroma),
-                px * 4 + (px // 64) * 8),
-            # out 2 B, at least one reference tap 1 B, vector + rep_add
+            # out 2 B per pixel, the reference bytes the taps read, vector
+            # and rep_add 5 B per block; integer work only
             "mc": (lambda: mc.predict_plane_mc(refs[ci], c["mv"],
                                                c["rep_add"], chroma),
                    lambda: predict_plane(refs[ci], c["mv"], c["rep_add"],
                                          chroma).to(torch.int16),
-                   px * 3 + (px // 64) * 5),
-            # levels 2, mult 2, flags 1, pred 2, out 1
+                   px * 2 + tap_footprint(c, *shape, chroma)
+                   + (px // 64) * 5, 0),
+            # levels 2, mult 2, flags 1, pred 2, out 1; the IDCT and add
             "recon": (lambda: recon.fused_recon_plane(
                 c["levels"], mult, flags, pred, is_p, consts),
                 lambda: recon.recon_plane(c["levels"], mult, flags, pred,
                                           is_p, consts),
-                px * 8),
+                px * 8, FLOP_PER_CODED_PIXEL * px),
         }
-        for name, (kernel, plain, moved) in cases.items():
-            timing[name][key] = time_in_turns(name, kernel, plain, dev,
-                                              card, key, shape, moved)
+        for name, (kernel, plain, moved, flop) in cases.items():
+            t = time_in_turns(name, kernel, plain, dev, card, key, shape,
+                              moved)
+            t["bound_ms"], t["bound_by"] = bound(moved, flop)
+            emit("kernel_bound", kernel=name, plane=key, card=card,
+                 bytes=moved, flop=flop, bound_ms=t["bound_ms"],
+                 bound_by=t["bound_by"], bound_share=t["bound_ms"] / t["ms"],
+                 library_ms=None, library=NO_LIBRARY)
+            timing[name][key] = t
 
     n_f = len(g.hdrs)
 
@@ -976,24 +1178,32 @@ def smoke(dev: torch.device) -> None:
     player_rate(data_1080, dev, card)
     colour_time(data_1080, dev, card)
 
-    check("jax" not in sys.modules, "JAX was imported")
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jsvx", "bench")]
+    check(not loaded, f"imported {loaded}")
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
-        {"name": "fused_decode_plane", "route": "cuda",
+        {"name": "fused_decode_picture", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
          "launches": launches, "max_abs_err": worst["fused"],
-         "ms": timing["fused"]["y"]["ms"],
-         "plain_ms": timing["fused"]["y"]["plain_ms"]},
+         "ms": fused_t["ms"], "plain_ms": fused_t["plain_ms"],
+         "bound_ms": fused_t["bound_ms"], "bound_by": fused_t["bound_by"],
+         "library_ms": None},
         {"name": "predict_plane_mc", "route": "cuda",
          "source": MC_SOURCE, "replaces": MC_REPLACES,
          "launches": n_two["mc"], "max_abs_err": worst["mc"],
          "ms": timing["mc"]["y"]["ms"],
-         "plain_ms": timing["mc"]["y"]["plain_ms"]},
+         "plain_ms": timing["mc"]["y"]["plain_ms"],
+         "bound_ms": timing["mc"]["y"]["bound_ms"],
+         "bound_by": timing["mc"]["y"]["bound_by"], "library_ms": None},
         {"name": "fused_recon_plane", "route": "cuda",
          "source": RECON_SOURCE, "replaces": RECON_REPLACES,
          "launches": n_two["recon"], "max_abs_err": worst["recon"],
          "ms": timing["recon"]["y"]["ms"],
-         "plain_ms": timing["recon"]["y"]["plain_ms"]}]}), flush=True)
+         "plain_ms": timing["recon"]["y"]["plain_ms"],
+         "bound_ms": timing["recon"]["y"]["bound_ms"],
+         "bound_by": timing["recon"]["y"]["bound_by"],
+         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

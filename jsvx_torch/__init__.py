@@ -1,10 +1,11 @@
 """jsvx_torch — the PyTorch / CUDA port of jsvx for one NVIDIA H100.
 
 A second package beside :mod:`jsvx`, the JAX reference.  It imports torch
-and never JAX.  The host side it shares with jsvx is framework-free:
-the bitstream parsers and the C++ parser (``jsvx.bitstream``), the VLC
-tables (``jsvx.coding``), the fixture encoder and float64 oracle
-(``jsvx.tools``) and the stage metrics (``jsvx.runtime``).
+and nothing of JAX or of the jsvx package: it carries its own copies of
+the host side (``bitstream``, with the C++ parser in ``native``;
+``coding``; ``tools``, the fixture encoder and float64 oracle; ``runtime``,
+the stage metrics, sources and GOP manifest; ``utils``).  Its entry points
+run on the CUDA card unless the caller passes ``device="cpu"``.
 
 * ``jsvx_torch.kernels``  — the plain PyTorch decode spec, the compact-wire
   expansion, the sideband expansion, and the hand-written CUDA kernels

@@ -8,13 +8,14 @@ Usage:
       [--start 0] [--audio X.wav] [--skip-hard] [--rgb] [--device cuda]
 
 The port of ``python -m jsvx``'s ``info``, ``decode`` and ``play``.
-``info`` is jsvx's own (host only).  ``decode`` sends every picture of the
-stream through :class:`jsvx_torch.pipeline.stream.StreamDecoder` and
-writes it to OUT_DIR as ``frame_NNNNN.npz`` (coded-size ``y``, ``cb``,
-``cr`` planes) or, with ``--rgb``, as ``frame_NNNNN.ppm``.  ``play`` runs
-:class:`jsvx_torch.api.Player` on a wall clock and prints jsvx's JSON
-report plus ``device``.  The device defaults to the first CUDA card where
-there is one, else the CPU.
+``info`` reads the container header and counts start codes (host only).
+``decode`` sends every picture of the stream through
+:class:`jsvx_torch.pipeline.stream.StreamDecoder` and writes it to OUT_DIR
+as ``frame_NNNNN.npz`` (coded-size ``y``, ``cb``, ``cr`` planes) or, with
+``--rgb``, as ``frame_NNNNN.ppm``.  ``play`` runs
+:class:`jsvx_torch.api.Player` on a wall clock and prints a JSON report
+(jsvx's, plus ``device``).  ``decode`` and ``play`` run on the CUDA card
+and fail when there is none; ``--device cpu`` is the only way to the CPU.
 """
 
 from __future__ import annotations
@@ -27,21 +28,48 @@ import time
 
 import numpy as np
 
-from jsvx.__main__ import cmd_info
+
+def cmd_info(args) -> int:
+    from .bitstream.bitio import BitReader
+    from .bitstream.container import StartCodeIndex, parse_container_header
+    from .coding import tables as T
+
+    with open(args.stream, "rb") as f:
+        data = f.read()
+    meta = parse_container_header(BitReader(data))
+    idx = StartCodeIndex.scan(data)
+    codes = idx.entries[:, 1]
+    info = {
+        "bytes": len(data),
+        "width": meta.width,
+        "height": meta.height,
+        "duration_s": meta.duration,
+        "yuva": meta.yuva,
+        "gop_key_map": meta.key_map.count if meta.key_map else 0,
+        "sequences": int(np.count_nonzero(codes == T.START_SEQUENCE)),
+        "gops": int(np.count_nonzero(codes == T.START_GOP)),
+        "pictures": int(np.count_nonzero(codes == T.START_PICTURE)),
+    }
+    print(json.dumps(info, indent=2))
+    return 0
 
 
-def default_device(arg: str | None) -> str:
+def device_for(arg: str) -> str:
+    """The device named on the command line; a CUDA device must exist."""
     import torch
 
-    return arg or ("cuda" if torch.cuda.is_available() else "cpu")
+    if torch.device(arg).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"python -m jsvx_torch: no CUDA device is "
+                         f"available for --device {arg} (pass --device cpu "
+                         f"to run on the CPU)")
+    return arg
 
 
 def cmd_decode(args) -> int:
-    from jsvx.tools.refmath import ycbcr_to_rgb
-
     from .pipeline.stream import StreamDecoder
+    from .tools.refmath import ycbcr_to_rgb
 
-    device = default_device(args.device)
+    device = device_for(args.device)
     with open(args.stream, "rb") as f:
         data = f.read()
     os.makedirs(args.out_dir, exist_ok=True)
@@ -70,7 +98,7 @@ def cmd_play(args) -> int:
     skips, played ranges, the event counts and order, and the device."""
     from .api import Player, PlayerConfig, WallClockAudio
 
-    device = default_device(args.device)
+    device = device_for(args.device)
     cfg = PlayerConfig(skip_hard=args.skip_hard, emit_rgb=args.rgb)
     audio = None
     if args.audio:
@@ -148,9 +176,9 @@ def main(argv=None) -> int:
     pd.add_argument("--rgb", action="store_true")
     pd.add_argument("--impl", default="fused",
                     choices=["fused", "two_kernel"])
-    pd.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available, "
-                         "else cpu)")
+    pd.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; cpu runs the "
+                         "plain versions)")
     pd.set_defaults(fn=cmd_decode)
 
     pp = sub.add_parser("play")
@@ -167,9 +195,9 @@ def main(argv=None) -> int:
                     help="drop late frames aggressively")
     pp.add_argument("--rgb", action="store_true",
                     help="convert frames to RGB in the sink")
-    pp.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available, "
-                         "else cpu)")
+    pp.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; cpu runs the "
+                         "plain versions)")
     pp.set_defaults(fn=cmd_play)
     args = p.parse_args(argv)
     return args.fn(args)

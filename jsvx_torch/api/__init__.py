@@ -1,21 +1,17 @@
-"""Decoder and Player of the port: jsvx's streaming API on a torch device.
+"""The port's streaming API: :class:`Decoder` and :class:`Player` on a
+torch device, with their configuration, errors, states and audio clock
+(the port of ``jsvx/api``)."""
 
-:class:`Decoder` and :class:`Player` subclass jsvx's and replace only
-their device methods; the configuration, errors, states and audio clock
-are jsvx's own classes, re-exported.
-"""
-
-from jsvx.api.config import PlayerConfig
-from jsvx.api.decoder import DecodedFrame
-from jsvx.api.errors import MediaError
-from jsvx.api.player import NetworkState, ReadyState, WallClockAudio
-
-from .decoder import Decoder
-from .player import Player
+from .config import PlayerConfig
+from .decoder import DecodedFrame, Decoder
+from .errors import MediaError
+from .events import EventDispatcher
+from .player import NetworkState, Player, ReadyState, WallClockAudio
 
 __all__ = [
     "Decoder",
     "DecodedFrame",
+    "EventDispatcher",
     "MediaError",
     "NetworkState",
     "Player",

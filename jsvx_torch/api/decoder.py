@@ -1,98 +1,280 @@
-"""Streaming Decoder on a torch device.
+"""Streaming Decoder: the public decode API over a sparse byte buffer.
 
-The port of ``jsvx/api/decoder.py``.  It subclasses jsvx's
-:class:`jsvx.api.decoder.Decoder`, which is JAX-free until it reaches the
-device: the byte buffer, container and key map, availability gates,
-``stalled``/``frame``/``ended``/``seeked`` events and key-map seeking are
-jsvx's own code.  Only the device methods are replaced:
+The port of ``jsvx/api/decoder.py``, the framework equivalent of the
+reference's ``jsv_dec`` object (``decoders/jsv.js:20-50,426-465,
+1618-1648``): it owns the stream buffer, parses the container header and
+GOP key map when enough bytes arrive, pulls one picture per
+``decode_frame()`` against availability gates (emitting ``stalled`` with
+the missing byte offset for the streaming layer to refill), reconstructs
+on the configured backend, and seeks via the key map to <= 150 ms
+precision.
+
+Backends: ``"torch"`` (the default) reconstructs on ``device`` (a CUDA
+card unless the caller asks for ``"cpu"``), ``"oracle"`` with the float64
+oracle on the host.  On the torch backend:
 
 * ``_reconstruct`` (one picture): the picture is packed, copied to
   ``device`` as one wire and decoded by the fused decode kernel, one
-  launch per plane, from the carried reference planes;
+  launch per picture, from the carried reference planes;
 * ``_decode_gop_batch`` (a fully buffered key-map GOP): every picture of
   the GOP is parsed, the GOP goes to ``device`` as one dense wire and
-  through the GOP loop, the fused kernel once per picture and plane; the
-  first frame returns and the rest queue.
+  through the GOP loop; the first frame returns and the rest queue.
 
-Both go through :func:`jsvx_torch.pipeline.stream.decode_group`.  jsvx
-batches only on its JAX backend; here the batch runs on the ``"torch"``
-backend.  ``backend="oracle"`` is jsvx's float64 path, unchanged.
-``DecodedFrame.planes`` are uint8 tensors on ``device``.
+Both go through :func:`jsvx_torch.pipeline.stream.decode_group`.
+``DecodedFrame.planes`` are uint8 tensors on ``device`` (numpy arrays on
+the oracle backend).
+
+Events: ``meta``(ContainerMeta), ``seq``(dict), ``frame``(DecodedFrame),
+``ended``, ``seeked``(target_ms, actual_ms), ``stalled``(byte).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
-from jsvx.api.decoder import DecodedFrame
-from jsvx.api.decoder import Decoder as _JsvxDecoder
-from jsvx.bitstream.bitio import BitReader, BitStallError
-from jsvx.coding import tables as T
-from jsvx.runtime.profiler import Metrics
-
+from ..bitstream.bitio import BitReader, BitStallError
+from ..bitstream.container import (ContainerMeta, StartCodeIndex,
+                                   find_start_codes, parse_container_header)
+from ..bitstream.parser import FrameTensors, StreamParser
+from ..bitstream.ranges import RangeBuffer
+from ..coding import tables as T
 from ..kernels.decode import make_constants
 from ..pipeline.gop import zero_refs
 from ..pipeline.packed_parse import BufferPool
 from ..pipeline.stream import decode_group
+from ..runtime.profiler import Metrics
+from .config import PlayerConfig
+from .events import EventDispatcher
 
 BACKENDS = ("torch", "oracle")
 
 
-class Decoder(_JsvxDecoder):
-    """jsvx's streaming Decoder, reconstructing on ``device``.
+def check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, "
+                         f"got {backend!r}")
 
-    ``metrics`` holds the device path's stages: ``parse`` (the GOP batch's
-    picture parse), ``pack``, ``h2d`` and ``device_decode``.
+
+@dataclass
+class DecodedFrame:
+    planes: tuple                 # (Y, Cb, Cr[, A]) uint8 tensors or arrays
+    picture_type: int
+    ts_ms: float                  # GOP timecode resync (0 = none)
+
+    @property
+    def is_intra(self) -> bool:
+        return self.picture_type == T.PICTURE_TYPE_I
+
+
+class Decoder(EventDispatcher):
+    """The streaming Decoder, reconstructing on ``device``.
+
+    ``metrics`` holds the torch backend's stages: ``parse`` (the GOP
+    batch's picture parse), ``pack``, ``h2d`` and ``device_decode``.
     """
 
-    def __init__(self, config=None, backend: str = "torch", *, device):
-        if backend not in BACKENDS:
-            raise ValueError(f"backend must be one of {BACKENDS}, "
-                             f"got {backend!r}")
-        super().__init__(config, backend=backend)
+    def __init__(self, config: PlayerConfig | None = None,
+                 backend: str = "torch", *, device="cuda"):
+        check_backend(backend)
+        super().__init__()
+        self.config = config or PlayerConfig()
+        self.backend = backend
         self.device = torch.device(device)
         self.metrics = Metrics()
         self._pool = BufferPool()
+        self.buffer = RangeBuffer()
+        self.buffer.on("stalled", lambda pos: self.emit("stalled", pos))
+        self.parser = StreamParser(use_native=self.config.use_native_parser)
+        self.meta: ContainerMeta | None = None
+        self.current_time_ms = 0.0
+        self._skip_till_gop = False
+        self._ended = False
+        self._refs = None
+        self._consts = None
+        self._index_cache: tuple[int, int, StartCodeIndex] | None = None
+        self._pending: list[DecodedFrame] = []   # GOP-batch output queue
+
+    # ------------------------------------------------------------------
+    # Ingest
+
+    def feed(self, start: int, data: bytes, total: int | None = None) -> None:
+        """Add downloaded bytes; parses metadata once the header is in."""
+        self.buffer.add(start, data, total)
+        if self.meta is None:
+            self._try_init_meta()
+
+    def _try_init_meta(self) -> None:
+        view = self.buffer.contiguous_view(0)
+        if view is None:
+            return
+        data, base = view
+        try:
+            r = BitReader(data.tobytes(), base=base)
+            meta = parse_container_header(r)
+        except BitStallError:
+            return                        # not enough header bytes yet
+        self.meta = meta
+        self.parser.yuva = meta.yuva       # 4th component (jsv.js:256-259)
+        self.buffer.read_pos = meta.header_bytes
+        self.emit("meta", meta)
+
+    # ------------------------------------------------------------------
+    # Helpers
+
+    def _view_and_index(self):
+        view = self.buffer.contiguous_view(self.buffer.read_pos)
+        if view is None:
+            self.emit("stalled", self.buffer.read_pos)
+            return None
+        data, base = view
+        key = (base, len(data))
+        if self._index_cache is None or self._index_cache[:2] != key:
+            idx = StartCodeIndex(find_start_codes(data, base))
+            self._index_cache = (base, len(data), idx)
+        return data, base, self._index_cache[2]
+
+    def _known_end(self, base: int, data_len: int) -> int | None:
+        """Absolute end-of-stream byte when this view reaches it."""
+        total = self.buffer.total_length
+        if total and base + data_len >= total:
+            return total
+        if self.buffer.fully_loaded:
+            return base + data_len
+        return None
+
+    @property
+    def sequence(self):
+        return self.parser.seq
+
+    # ------------------------------------------------------------------
+    # Decode
 
     def decode_frame(self) -> DecodedFrame | None:
-        """jsvx's ``decode_frame``, with its GOP batch opened to the torch
-        backend: a fully buffered key-map GOP decodes as one batch, and
-        anything else picture by picture."""
-        if (self.backend == "torch" and self.config.use_gop_scan
-                and not self._pending and self.meta is not None):
+        """Decode the next picture; None on stall or end (check
+        ``ended``).  Mirrors the reference decode loop (jsv.js:426-465).
+
+        With ``config.use_gop_scan``, a key map and the torch backend, a
+        fully-buffered GOP is decoded as ONE batch (one copy and one GOP
+        loop); frames stream out of an internal queue.  Falls back to
+        picture-at-a-time whenever the next GOP is not fully buffered yet.
+        """
+        if self._pending:
+            frame = self._pending.pop(0)
+            self.emit("frame", frame)
+            return frame
+        if self.meta is None:
+            self.emit("stalled", 0)
+            return None
+        if self.config.use_gop_scan and self.backend == "torch":
             span = self._buffered_gop_span()
             if span is not None:
                 got = self._decode_gop_batch(span)
                 if got is not None:
                     return got
-        return super().decode_frame()
+        while True:
+            total = self.buffer.total_length
+            if ((total and self.buffer.read_pos >= total)
+                    or (self.buffer.fully_loaded
+                        and self.buffer.buffered_from(
+                            self.buffer.read_pos) == 0)):
+                self._ended = True
+                self.emit("ended")
+                return None
+            vi = self._view_and_index()
+            if vi is None:
+                return None
+            data, base, index = vi
+            pos = self.buffer.read_pos
+            nxt = index.next_code(pos)
+            if nxt is None:
+                end = self._known_end(base, len(data))
+                if end is not None:
+                    self._ended = True
+                    self.emit("ended")
+                else:
+                    self.emit("stalled", base + len(data))
+                return None
+            off, code = nxt
+            r = BitReader(data.tobytes(), base=base,
+                          pos_bits=(off + 4) << 3)
+            try:
+                if code == T.START_SEQUENCE:
+                    if not self.buffer.has(18, off):   # header size gate
+                        return None
+                    seq = self.parser.parse_sequence_header(r)
+                    if self._skip_till_gop:
+                        self._skip_till_gop = False
+                    self._on_sequence(seq)
+                    self.buffer.advance_to(r.byte_pos)
+                elif self._skip_till_gop:
+                    self.buffer.advance_to(off + 4)
+                elif code == T.START_GOP:
+                    if not self.buffer.has(8, off):
+                        return None
+                    t = self.parser.parse_gop_header(r)
+                    self.current_time_ms = t
+                    self.buffer.advance_to(r.byte_pos)
+                elif code == T.START_PICTURE:
+                    gate = (self.parser.seq.vbv_buffer_bytes
+                            if self.parser.seq else 300000)
+                    if not self.buffer.has(gate, off):
+                        return None
+                    eos = self._known_end(base, len(data))
+                    ft = self.parser.parse_picture(r, index, eos)
+                    self.buffer.advance_to(r.byte_pos)
+                    if ft is None:
+                        continue           # skipped picture type
+                    frame = self._reconstruct(ft)
+                    self.emit("frame", frame)
+                    return frame
+                else:
+                    self.buffer.advance_to(off + 4)
+            except BitStallError as e:
+                self.emit("stalled", e.needed_byte)
+                return None
 
-    def _decode(self, fts: list, use_gop_scan: bool) -> list:
-        """Parsed pictures -> their planes, the reference carried."""
-        seq = self.parser.seq
-        if self._consts is None:
-            self._consts = make_constants(seq, self.device)
-        if self._refs is None:
-            self._refs = zero_refs(seq.coded_height, seq.coded_width,
-                                   fts[0].n_comps, self.device)
-        frames, self._refs = decode_group(
-            fts, self._refs, self._consts, self.device,
-            quirk=self.config.quirk_oddify_zeros, use_gop_scan=use_gop_scan,
-            pool=self._pool, metrics=self.metrics)
-        return frames
+    # ------------------------------------------------------------------
+    # GOP-batched decode (one wire and one GOP loop over a buffered GOP)
 
-    def _reconstruct(self, ft) -> DecodedFrame:
-        if self.backend != "torch":
-            return super()._reconstruct(ft)
-        planes, = self._decode([ft], use_gop_scan=False)
-        return DecodedFrame(planes=planes, picture_type=ft.picture_type,
-                            ts_ms=ft.gop_time_ms)
+    def _buffered_gop_span(self) -> tuple | None:
+        """Byte span [start, end) of the key-map GOP containing read_pos
+        iff every byte of it is buffered; None otherwise."""
+        if self._skip_till_gop or self.meta is None:
+            return None
+        km = self.meta.key_map
+        if km is None or km.count == 0:
+            return None
+        pos = self.buffer.read_pos
+        offs = km.offsets
+        i = int(np.searchsorted(offs, pos, side="right")) - 1
+        if i < 0:
+            return None
+        if i + 1 < km.count:
+            end = int(offs[i + 1])
+            # +4: the next GOP's start code must be visible so the native
+            # parser can bound this GOP's final picture
+            need = end - pos + 4
+        else:
+            total = self.buffer.total_length
+            if not total:
+                return None
+            end = total
+            need = end - pos
+        if end <= pos:
+            return None
+        if self.buffer.buffered_from(pos) < need:
+            return None
+        return (pos, end)
 
     def _decode_gop_batch(self, span) -> DecodedFrame | None:
         """Parse every picture in the buffered span and decode them as one
         batch; the first frame returns, the rest queue in ``_pending``.
         Any surprise stall ends the parse early (the pictures parsed so far
-        still decode), as in jsvx."""
+        still decode), and with none parsed the caller falls back to the
+        picture-at-a-time loop."""
         with self.metrics.timers.stage("parse"):
             fts = self._parse_span(span[1])
         if not fts:
@@ -106,9 +288,7 @@ class Decoder(_JsvxDecoder):
         return frames[0]
 
     def _parse_span(self, end: int) -> list:
-        """The byte-span parse of jsvx's ``_decode_gop_batch``
-        (``jsvx/api/decoder.py:240-276``): headers and pictures from
-        ``read_pos`` up to ``end``."""
+        """Headers and pictures from ``read_pos`` up to ``end``."""
         fts = []
         while True:
             pos = self.buffer.read_pos
@@ -144,3 +324,113 @@ class Decoder(_JsvxDecoder):
                 self.emit("stalled", e.needed_byte)
                 break
         return fts
+
+    @property
+    def ended(self) -> bool:
+        return self._ended
+
+    def iter_frames(self):
+        """Yield frames until end of stream (data must be fed; stops at a
+        stall — check ``ended`` to distinguish starvation from EOS)."""
+        while True:
+            frame = self.decode_frame()
+            if frame is None:
+                return
+            yield frame
+
+    def _on_sequence(self, seq) -> None:
+        if self.meta and seq.bit_rate:
+            self.buffer.bytes_backward_limit = int(
+                seq.bit_rate * self.config.seconds_played_limit) >> 3
+        self.emit("seq", {"r": seq.picture_rate, "w": seq.width,
+                          "h": seq.height})
+
+    # ------------------------------------------------------------------
+    # Reconstruction backends
+
+    def _decode(self, fts: list, use_gop_scan: bool) -> list:
+        """Parsed pictures -> their planes on ``device``, the reference
+        carried."""
+        seq = self.parser.seq
+        if self._consts is None:
+            self._consts = make_constants(seq, self.device)
+        if self._refs is None:
+            self._refs = zero_refs(seq.coded_height, seq.coded_width,
+                                   fts[0].n_comps, self.device)
+        frames, self._refs = decode_group(
+            fts, self._refs, self._consts, self.device,
+            quirk=self.config.quirk_oddify_zeros, use_gop_scan=use_gop_scan,
+            pool=self._pool, metrics=self.metrics)
+        return frames
+
+    def _reconstruct(self, ft: FrameTensors) -> DecodedFrame:
+        if self.backend == "oracle":
+            from ..tools.oracle import reconstruct_frame
+
+            planes = reconstruct_frame(ft, self.parser.seq, self._refs,
+                                       self.config.quirk_oddify_zeros)
+            self._refs = planes
+        else:
+            planes, = self._decode([ft], use_gop_scan=False)
+        return DecodedFrame(planes=planes, picture_type=ft.picture_type,
+                            ts_ms=ft.gop_time_ms)
+
+    # ------------------------------------------------------------------
+    # Seeking (jsv.js:1618-1648)
+
+    def seek(self, target_ms: float) -> bool:
+        """Key-map (or linear-estimate) seek to <= 150 ms precision.
+        Returns False when more data must be fetched first (a ``stalled``
+        event carries the byte to fetch)."""
+        meta = self.meta
+        if meta is None:
+            return False
+        if meta.key_map is not None and meta.key_map.count > 0:
+            rate = (self.parser.seq.picture_rate
+                    if self.parser.seq is not None else 30.0)
+            byte = meta.key_map.byte_for_time(
+                target_ms / 1000.0, meta.duration, rate)
+        else:
+            total = self.buffer.total_length or 1
+            byte = int(round(total * (target_ms / 1000.0)
+                             / max(meta.duration, 1e-9)))
+        if not self.buffer.seek(byte):
+            return False
+
+        while True:
+            if not self._seek_find_and_parse(T.START_SEQUENCE):
+                return False
+            if not self._seek_find_and_parse(T.START_GOP):
+                return False
+            if (target_ms - self.parser.current_time_ms
+                    <= self.config.seek_precision_ms):
+                break
+        self.current_time_ms = self.parser.current_time_ms
+        self._refs = None                 # next picture is an I frame
+        self._ended = False
+        self._pending.clear()             # drop batched frames pre-seek
+        self.emit("seeked", target_ms, self.current_time_ms)
+        return True
+
+    def _seek_find_and_parse(self, want_code: int) -> bool:
+        vi = self._view_and_index()
+        if vi is None:
+            return False
+        data, base, index = vi
+        nxt = index.next_code(self.buffer.read_pos, codes={want_code})
+        if nxt is None:
+            self.emit("stalled", base + len(data))
+            return False
+        off, _ = nxt
+        r = BitReader(data.tobytes(), base=base, pos_bits=(off + 4) << 3)
+        try:
+            if want_code == T.START_SEQUENCE:
+                self.parser.parse_sequence_header(r)
+                self._on_sequence(self.parser.seq)
+            else:
+                self.parser.parse_gop_header(r)
+        except BitStallError as e:
+            self.emit("stalled", e.needed_byte)
+            return False
+        self.buffer.advance_to(r.byte_pos)
+        return True

@@ -1,10 +1,13 @@
-// The per-pixel arithmetic the port's decode kernels share, CUDA C++ for
-// Hopper (sm_90a): the integer dequantisation core, the two fixed-order
-// passes of the 8x8 IDCT over a strip of blocks in shared memory, and the
-// half-pel motion-compensation taps.  fused_decode.cu, recon.cu and mc.cu
-// all include it, so the three kernels cannot drift apart; the plain
-// PyTorch versions (jsvx_torch/kernels/decode.py) compute the same steps
-// in the same order.
+// The arithmetic the port's decode kernels share, CUDA C++ for Hopper
+// (sm_90a): the integer dequantisation core, the 8x8 IDCT in two
+// fixed-order passes, and the half-pel motion-compensation taps.
+// fused_decode.cu, recon.cu and mc.cu all include it, so the three kernels
+// cannot drift apart; the plain PyTorch versions
+// (jsvx_torch/kernels/decode.py) compute the same steps in the same order.
+// Two forms of each step: one thread per pixel over a strip of blocks in
+// shared memory (idct_strip, halfpel_predict: recon.cu, mc.cu), and one
+// thread per 8-pixel row of a block in registers (idct8, halfpel_row8,
+// round_pack4: fused_decode.cu).
 //
 // Exactness: each 1-D IDCT output is c[x,0]*f[0] + c[x,1]*f[1] + ... +
 // c[x,7]*f[7], summed left to right with __fmul_rn/__fadd_rn, so it is
@@ -95,6 +98,131 @@ __device__ __forceinline__ int halfpel_predict(const uint8_t* __restrict__ ref,
     if (!ox) return (a + ref[(size_t)y1 * w + x0] + 1) >> 1;
     return (a + ref[(size_t)y0 * w + x1] + ref[(size_t)y1 * w + x0]
             + ref[(size_t)y1 * w + x1] + 2) >> 2;
+}
+
+// ---------------------------------------------------------------------------
+// One thread per 8-pixel row of a block, everything in registers.
+
+// Four sums s[0..3] of (float)prediction + residual -> four bytes
+// min(max(rintf(s), 0), 255), byte 0 first: one round-to-nearest-even
+// conversion per value (as rintf rounds; the sums are far inside int
+// range) and two saturating packs (cvt.pack.sat: d = (c << 16) |
+// sat_u8(a) << 8 | sat_u8(b)), which clamp as the byte cast after
+// fminf/fmaxf does.
+__device__ __forceinline__ uint32_t round_pack4(float s0, float s1, float s2,
+                                                float s3) {
+    uint32_t hi, word;
+    asm("cvt.pack.sat.u8.s32.b32 %0, %1, %2, 0;"
+        : "=r"(hi) : "r"(__float2int_rn(s3)), "r"(__float2int_rn(s2)));
+    asm("cvt.pack.sat.u8.s32.b32 %0, %1, %2, %3;"
+        : "=r"(word)
+        : "r"(__float2int_rn(s1)), "r"(__float2int_rn(s0)), "r"(hi));
+    return word;
+}
+
+// One 1-D pass of the IDCT over eight values in registers:
+// out[x] = c[8x]*in[0] + c[8x+1]*in[1] + ... + c[8x+7]*in[7], left to
+// right.  The column pass (in = column l of F, out = column l of C @ F)
+// and the row pass (in = row x of C @ F, out = row x of C @ F @ C.T) are
+// both this function, in the same order as dot8.  With `c` a kernel
+// parameter the indices are constants and each basis entry is an operand
+// of its multiply, not a load.
+__device__ __forceinline__ void idct8(const float* c, const float (&in)[8],
+                                      float (&out)[8]) {
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+        float acc = __fmul_rn(c[8 * x], in[0]);
+#pragma unroll
+        for (int k = 1; k < 8; ++k) {
+            acc = __fadd_rn(acc, __fmul_rn(c[8 * x + k], in[k]));
+        }
+        out[x] = acc;
+    }
+}
+
+// The nine bytes row[x0 .. x0+8] of one reference row of width w, each
+// column clamped to [0, w - 1] (CLAMP_TO_EDGE): bytes 0-3 in lo, 4-7 in
+// hi, byte 8 in the low byte of e.  Where the first eight lie in the row,
+// two aligned 8-byte loads and funnel shifts (row must be 8-byte aligned
+// and w a multiple of 8; when the ninth is past the end, x0 is aligned and
+// it clamps to byte 7); elsewhere one clamped load per byte.
+__device__ __forceinline__ void window9(const uint8_t* __restrict__ row,
+                                        int x0, int w, uint32_t& lo,
+                                        uint32_t& hi, uint32_t& e) {
+    if (x0 >= 0 && x0 + 8 <= w) {
+        const int base = x0 & ~7;
+        const uint2 a = *reinterpret_cast<const uint2*>(row + base);
+        const uint2 b = x0 + 8 < w
+            ? *reinterpret_cast<const uint2*>(row + base + 8)
+            : make_uint2(a.y >> 24, 0u);
+        const bool upper = (x0 & 4) != 0;
+        const uint32_t w0 = upper ? a.y : a.x;
+        const uint32_t w1 = upper ? b.x : a.y;
+        const uint32_t w2 = upper ? b.y : b.x;
+        const int k = (x0 & 3) * 8;
+        lo = __funnelshift_r(w0, w1, k);
+        hi = __funnelshift_r(w1, w2, k);
+        e = w2 >> k;
+    } else {
+        uint32_t v[9];
+#pragma unroll
+        for (int j = 0; j < 9; ++j) v[j] = row[clampi(x0 + j, 0, w - 1)];
+        lo = v[0] | (v[1] << 8) | (v[2] << 16) | (v[3] << 24);
+        hi = v[4] | (v[5] << 8) | (v[6] << 16) | (v[7] << 24);
+        e = v[8];
+    }
+}
+
+// Per byte of four: (a + b + 1) >> 1, MPEG's two-tap half-pel rounding.
+__device__ __forceinline__ uint32_t avg2_up(uint32_t a, uint32_t b) {
+    return (a | b) - (((a ^ b) >> 1) & 0x7F7F7F7Fu);
+}
+
+// Per byte of four: (a + b + c + d + 2) >> 2, MPEG's four-tap rounding,
+// in two 16-bit lanes for the even and the odd bytes (at most 1022 each).
+__device__ __forceinline__ uint32_t avg4_round(uint32_t a, uint32_t b,
+                                               uint32_t c, uint32_t d) {
+    const uint32_t m = 0x00FF00FFu;
+    const uint32_t ev = (a & m) + (b & m) + (c & m) + (d & m) + 0x00020002u;
+    const uint32_t od = ((a >> 8) & m) + ((b >> 8) & m) + ((c >> 8) & m)
+                        + ((d >> 8) & m) + 0x00020002u;
+    return ((ev >> 2) & m) | (((od >> 2) & m) << 8);
+}
+
+// The half-pel prediction of one 8-pixel row, bytes 0-3 in p0 and 4-7 in
+// p1: pixel k of the row predicts from columns x0 + k (+1 when ox) of rows
+// y0 (and y1 when oy), each already clamped to the plane, as
+// halfpel_predict does per pixel.  `ref` must be 8-byte aligned.
+__device__ __forceinline__ void halfpel_row8(const uint8_t* __restrict__ ref,
+                                             int w, int y0, int y1, int x0,
+                                             bool oy, bool ox, uint32_t& p0,
+                                             uint32_t& p1) {
+    uint32_t a0, a1, ae;
+    window9(ref + (size_t)y0 * w, x0, w, a0, a1, ae);
+    if (!oy && !ox) {
+        p0 = a0;
+        p1 = a1;
+        return;
+    }
+    // b: the same row one column to the right
+    const uint32_t b0 = __funnelshift_r(a0, a1, 8);
+    const uint32_t b1 = __funnelshift_r(a1, ae, 8);
+    if (!oy) {
+        p0 = avg2_up(a0, b0);
+        p1 = avg2_up(a1, b1);
+        return;
+    }
+    uint32_t c0, c1, ce;
+    window9(ref + (size_t)y1 * w, x0, w, c0, c1, ce);
+    if (!ox) {
+        p0 = avg2_up(a0, c0);
+        p1 = avg2_up(a1, c1);
+        return;
+    }
+    const uint32_t d0 = __funnelshift_r(c0, c1, 8);
+    const uint32_t d1 = __funnelshift_r(c1, ce, 8);
+    p0 = avg4_round(a0, b0, c0, d0);
+    p1 = avg4_round(a1, b1, c1, d1);
 }
 
 }  // namespace jsvx

@@ -1,40 +1,56 @@
-// Fused decode of one plane of one picture, CUDA C++ for Hopper (sm_90a).
+// Fused decode of every plane of one picture, CUDA C++ for Hopper (sm_90a).
 //
-// One pass computes what the JAX package's TPU kernel
-// jsvx/kernels/pallas_fused.py::_fused_kernel computes: half-pel motion
-// compensation from the previous plane, integer dequantisation with
-// mismatch control, the 8x8 IDCT, the prediction add, rounding and the
-// clamp to a byte.  The plain PyTorch version of the same function is
-// jsvx_torch/kernels/decode.py::decode_frame_plane; the two are bit-equal.
+// One launch computes, for the 3 planes of a picture (4 with YUVA alpha),
+// what the JAX package's TPU kernel
+// jsvx/kernels/pallas_fused.py::_fused_kernel computes for one plane:
+// half-pel motion compensation from the previous plane, integer
+// dequantisation with mismatch control, the 8x8 IDCT, the prediction add,
+// rounding and the clamp to a byte.  The plain PyTorch version is
+// jsvx_torch/kernels/decode.py::decode_frame_plane, per plane; the two are
+// bit-equal.
 //
-// What bounds it: device memory.  Per pixel it reads 2 B of levels and at
-// most 4 reference taps (1 B each, mostly served from L1/L2 because
-// neighbouring threads read neighbouring taps) and writes 1 B, about
-// 16 MB for a 1080p 4:2:0 frame; the arithmetic (16 multiply-adds per
-// pixel) is far below the card's rate.  The design answer: each input is
-// read once, and the coefficients, the IDCT intermediate and the
-// prediction never leave registers or shared memory.
+// What bounds it: per 1080p 4:2:0 picture it must read 2 B of levels and
+// 1 B of reference per pixel, write 1 B, and read 8 B of sideband per 8x8
+// block: 12.93 MB, 3.86 us at 3.35 TB/s.  The exactness contract fixes
+// the arithmetic at 30 rounded f32 operations per pixel (1.4 us at 67
+// TFLOP/s), but each of them, and each dequantisation, tap and pack step
+// around them, takes an issue slot, and the card issues one warp
+// instruction per clock per scheduler: the kernel is bound by instruction
+// issue (about 3.2 us for the IDCT's operations alone), not by bytes.
+// The first design spent about 21 shared-memory instructions per pixel
+// and one launch per plane (a 0.5 MB chroma plane cannot approach any
+// bound alone).  The design answer:
+//   * one launch per picture: a by-value descriptor per plane, and each
+//     CTA finds its plane from the prefix of CTA counts; the quant
+//     matrices, the scan order and the basis travel with the launch, so
+//     there is no table prologue and no barrier;
+//   * one thread per 8-pixel row of a block: the row's eight levels come in
+//     as one 16-byte load and are dequantised in registers, the block's
+//     sideband is read once per thread, the block is transposed through
+//     shared memory once each way (conflict-free padded tiles, 2.5
+//     shared-memory instructions per pixel), and both IDCT passes run in
+//     registers with the basis as kernel-parameter operands (no load);
+//   * the reference taps of a row come from two aligned 8-byte loads and
+//     funnel shifts (clamped byte loads only where the window crosses the
+//     plane's edge), averaged four bytes at a time; rounding and the clamp
+//     are one round-to-nearest conversion per pixel and saturating byte
+//     packs; the row is stored with one 8-byte store;
+//   * a block with lnz == 0 that is not intra reads no levels, and a warp
+//     whose four blocks are all such runs no IDCT: its output is the
+//     prediction itself (an IDCT of zeros is +-0, which leaves the rounded
+//     sum unchanged).
+// Tensor cores are ruled out: they round to TF32 and sum in their own
+// order.
+
+// Layout: a warp covers four 8x8 blocks side by side in one block row,
+// lane = 8 * block + row (row of the block in the dequantisation and row
+// passes, column in the column pass); a CTA is four warps over four
+// consecutive warp tasks of its plane, numbered along block rows.
 //
-// Layout: a CTA of 32 x 8 threads covers one strip of four 8x8 blocks side
-// by side, one thread per pixel, so each warp reads one 32-pixel row of
-// every plane (coalesced).  The dequantised block goes to shared memory,
-// then the column pass, then the row pass.
-//
-// Exactness: the dequantisation core, both IDCT passes and the half-pel
-// taps come from block_math.cuh, shared with recon.cu and mc.cu.  Each 1-D
-// pass is the explicit sum c[x,0]*f[0] + ... + c[x,7]*f[7], left to right,
-// never contracted into a fused multiply-add; the plain version sums in
-// the same order with separate torch multiplies and adds.  rintf rounds
-// half to even, as torch.round does.
-//
-// Motion compensation reads the four half-pel taps straight from the
-// reference with each index clamped to the plane (CLAMP_TO_EDGE), per
-// block vector; the TPU kernel's distinct-vector table, window DMA and
-// edge-padded reference copy exist because per-pixel gathers are scalar
-// loops on a TPU, and have no counterpart here (nor its 255-vector cap).
-//
-// Speed work (TMA, vectorised loads, one CTA over many blocks, a CUDA
-// graph over the GOP) is left for later.
+// Exactness: dequant_coef and the IDCT order come from block_math.cuh,
+// shared with recon.cu and mc.cu; each 1-D pass is the explicit sum
+// c[x,0]*f[0] + ... + c[x,7]*f[7], left to right, never contracted into a
+// fused multiply-add.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,94 +59,244 @@
 
 namespace {
 
-constexpr int kBlocksPerCta = 4;
-constexpr int kCtaW = 8 * kBlocksPerCta;   // 32 pixels: one warp per row
+constexpr int kMaxPlanes = 4;
+constexpr int kWarps = 4;                  // warps per CTA
+constexpr int kBlocksPerWarp = 4;          // 8x8 blocks side by side
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRow = 12;                   // floats per tile row: 8 + pad
+constexpr int kTile = 8 * kRow + 8;        // floats per block tile
 
-__global__ void __launch_bounds__(kCtaW * 8)
-fused_decode_kernel(const int16_t* __restrict__ levels,   // (h, w)
-                    const uint8_t* __restrict__ lnz,      // (h/8, w/8)
-                    const uint8_t* __restrict__ qscale,   // (h/8, w/8)
-                    const uint8_t* __restrict__ intra,    // (h/8, w/8)
-                    const int16_t* __restrict__ mv,       // (h/8, w/8, 2)
-                    const uint8_t* __restrict__ rep_add,  // (h/8, w/8)
-                    const uint8_t* __restrict__ ref,      // (h, w)
-                    const int32_t* __restrict__ is_p,     // scalar
-                    const int32_t* __restrict__ qtab,     // (3, 64)
-                    const float* __restrict__ c_basis,    // (8, 8)
-                    uint8_t* __restrict__ out,            // (h, w)
-                    int h, int w, int is_chroma, int quirk) {
-    // qtab rows: intra matrix, non-intra matrix, scan position (spatial)
-    __shared__ int s_q[192];
-    __shared__ float s_c[64];
-    __shared__ float s_f[8][kCtaW];      // dequantised coefficients
-    __shared__ float s_col[8][kCtaW];    // after the column pass
+struct PlaneArgs {
+    const int16_t* levels;                 // (h, w)
+    const uint8_t* lnz;                    // (h/8, w/8)
+    const uint8_t* qscale;                 // (h/8, w/8)
+    const uint8_t* intra;                  // (h/8, w/8)
+    const int16_t* mv;                     // (h/8, w/8, 2)
+    const uint8_t* rep_add;                // (h/8, w/8)
+    const uint8_t* ref;                    // (h, w)
+    uint8_t* out;                          // (h, w)
+    int h, w, is_chroma, cta_begin, groups;
+    float inv_groups;
+};
 
-    const int tx = threadIdx.x;          // column within the strip
-    const int ty = threadIdx.y;          // row within the block
-    const int tid = ty * kCtaW + tx;
-    if (tid < 192) {
-        s_q[tid] = qtab[tid];
-    } else {
-        s_c[tid - 192] = c_basis[tid - 192];
+struct PictureArgs {
+    PlaneArgs plane[kMaxPlanes];
+    const int32_t* is_p;                   // one int32 on the card
+    float c[64];                           // IDCT basis: spatial = C F C^T
+    alignas(16) int qm[2][64];             // intra, non-intra matrix
+    alignas(8) uint8_t scan[64];           // scan position of each position
+    int n_planes;
+};
+
+// One row's eight levels (int16 pairs in lv4) -> dequantised f32 values
+// (decode.py::dequant_plane).  m holds the row's quant-matrix entries,
+// sc the scan positions as bytes; kMask = false skips the scan mask, for a
+// warp whose live blocks all have lnz == 64 (the compact wire's).
+template <bool kQuirk, bool kMask>
+__device__ __forceinline__ void dequant_row(uint4 lv4, const int (&m)[8],
+                                            uint2 sc, int q, int lnz,
+                                            bool intra, int r, float (&f)[8]) {
+    const uint32_t lvw[4] = {lv4.x, lv4.y, lv4.z, lv4.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int lv = (int16_t)(lvw[j >> 1] >> (16 * (j & 1)));
+        int d = jsvx::dequant_coef(lv, q * m[j], !intra, kQuirk);
+        if (kMask) {
+            const int scan = ((j < 4 ? sc.x : sc.y) >> (8 * (j & 3))) & 0xFF;
+            if (scan >= lnz) d = 0;                  // outside the scan
+        }
+        if (j == 0 && r == 0 && intra) d = 8 * lv;   // intra DC
+        f[j] = __int2float_rn(d);
     }
+}
 
-    const int wb = w >> 3;
-    const int bx = blockIdx.x * kBlocksPerCta + (tx >> 3);
-    const bool live = bx < wb;           // ragged right edge of the plane
-    const int blk = blockIdx.y * wb + bx;
-    const int pos = ty * 8 + (tx & 7);   // spatial position in the block
-    const int y = blockIdx.y * 8 + ty;
-    const int x = bx * 8 + (tx & 7);
-    const size_t pix = (size_t)y * w + x;
-    __syncthreads();
+template <bool kQuirk>
+__global__ void __launch_bounds__(kThreads)
+fused_decode_picture_kernel(const __grid_constant__ PictureArgs a) {
+    __shared__ __align__(16) float s_t[kWarps][kBlocksPerWarp * kTile];
 
-    // ---- dequantise (integer; jsvx/kernels/decode.py::dequant_plane) ----
-    float f = 0.0f;
+    int p = 0;                             // the CTA's plane
+#pragma unroll
+    for (int i = 1; i < kMaxPlanes; ++i) {
+        if (i < a.n_planes && (int)blockIdx.x >= a.plane[i].cta_begin) p = i;
+    }
+    const PlaneArgs& P = a.plane[p];
+    const int h = P.h, w = P.w, wb = w >> 3;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int b = lane >> 3, r = lane & 7;
+    // warp task -> block row: task / groups by the reciprocal, corrected
+    // by one step (exact: task < 2^22)
+    const int groups = P.groups;
+    const int task = ((int)blockIdx.x - P.cta_begin) * kWarps + warp;
+    int by = __float2int_rz(__int2float_rn(task) * P.inv_groups);
+    const int rem = task - by * groups;
+    by += (rem >= groups) - (rem < 0);
+    const int bx = (task - by * groups) * kBlocksPerWarp + b;
+    if (by >= (h >> 3)) return;            // the whole warp: past the plane
+    const bool live = bx < wb;             // the row's blocks end mid-warp
+    const int blk = by * wb + bx;
+    const int y = by * 8 + r;
+    const size_t pix = (size_t)y * w + (size_t)bx * 8;
+
+    // ---- the block's sideband, once per thread ----
+    const bool is_p = *a.is_p != 0;
+    int lnz = 0, q = 0, mvy = 0, mvx = 0;
+    bool intra = false, rep = true;
     if (live) {
-        const int lv = levels[pix];
-        const bool is_intra = intra[blk] != 0;
-        const int m = is_intra ? s_q[pos] : s_q[64 + pos];
-        int d = jsvx::dequant_coef(lv, (int)qscale[blk] * m, !is_intra,
-                                   quirk != 0);
-        if (s_q[128 + pos] >= (int)lnz[blk]) d = 0;     // outside the scan
-        if (pos == 0 && is_intra) d = 8 * lv;           // intra DC
-        f = (float)d;
+        lnz = P.lnz[blk];
+        q = P.qscale[blk];
+        intra = P.intra[blk] != 0;
+        rep = P.rep_add[blk] != 0;
+        const uint32_t mvw = reinterpret_cast<const uint32_t*>(P.mv)[blk];
+        mvy = (int16_t)(mvw & 0xFFFFu);
+        mvx = (int16_t)(mvw >> 16);
     }
-    const float res = jsvx::idct_strip<kCtaW>(f, s_c, s_f, s_col, tx, ty);
+    const bool coded = live && (lnz > 0 || intra);
+
+    // the row's levels, loaded ahead of the reference taps
+    uint4 lv4 = make_uint4(0, 0, 0, 0);
+    if (coded) lv4 = *reinterpret_cast<const uint4*>(P.levels + pix);
+
+    // ---- half-pel prediction of the row (decode.py::predict_plane) ----
+    uint32_t p0 = 0, p1 = 0;
+    if (live && !rep && is_p) {
+        if (P.is_chroma) {                 // truncation toward zero
+            mvy /= 2;
+            mvx /= 2;
+        }
+        const int y0 = jsvx::clampi(y + (mvy >> 1), 0, h - 1);
+        const int y1 = jsvx::clampi(y + (mvy >> 1) + 1, 0, h - 1);
+        jsvx::halfpel_row8(P.ref, w, y0, y1, bx * 8 + (mvx >> 1),
+                           (mvy & 1) != 0, (mvx & 1) != 0, p0, p1);
+    }
+
+    if (!__any_sync(0xFFFFFFFFu, coded)) { // four uncoded blocks
+        if (live) {
+            *reinterpret_cast<uint2*>(P.out + pix) = make_uint2(p0, p1);
+        }
+        return;
+    }
+
+    // ---- dequantise the row (decode.py::dequant_plane) ----
+    float f[8];
+    {
+        const int4* mrow =
+            reinterpret_cast<const int4*>(&a.qm[intra ? 0 : 1][8 * r]);
+        const int4 m0 = mrow[0], m1 = mrow[1];
+        const int m[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+        if (__all_sync(0xFFFFFFFFu, !live || lnz >= 64)) {
+            dequant_row<kQuirk, false>(lv4, m, make_uint2(0, 0), q, lnz,
+                                       intra, r, f);
+        } else {
+            const uint2 sc = *reinterpret_cast<const uint2*>(&a.scan[8 * r]);
+            dequant_row<kQuirk, true>(lv4, m, sc, q, lnz, intra, r, f);
+        }
+    }
+
+    // ---- IDCT: transpose, column pass, transpose back, row pass ----
+    float* t = &s_t[warp][b * kTile];
+    *reinterpret_cast<float4*>(t + r * kRow) =
+        make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(t + r * kRow + 4) =
+        make_float4(f[4], f[5], f[6], f[7]);
+    __syncwarp();
+    float col[8], g[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) col[u] = t[u * kRow + r];   // column r of F
+    jsvx::idct8(a.c, col, g);                               // column r of C F
+    __syncwarp();
+#pragma unroll
+    for (int x = 0; x < 8; ++x) t[x * kRow + r] = g[x];
+    __syncwarp();
+    const float4 g0 = *reinterpret_cast<const float4*>(t + r * kRow);
+    const float4 g1 = *reinterpret_cast<const float4*>(t + r * kRow + 4);
+    const float row[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    float res[8];
+    jsvx::idct8(a.c, row, res);                             // row r of C F C^T
+
+    // ---- add, round, clamp, one 8-byte store ----
     if (!live) return;
-
-    // ---- half-pel prediction (jsvx/kernels/decode.py::predict_plane) ----
-    int pred = 0;
-    if (*is_p != 0 && rep_add[blk] == 0) {
-        pred = jsvx::halfpel_predict(ref, h, w, y, x, mv[2 * blk],
-                                     mv[2 * blk + 1], is_chroma != 0);
+    float s[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const uint32_t pj = ((j < 4 ? p0 : p1) >> (8 * (j & 3))) & 0xFFu;
+        s[j] = __fadd_rn(__uint2float_rn(pj), res[j]);
     }
+    *reinterpret_cast<uint2*>(P.out + pix) = make_uint2(
+        jsvx::round_pack4(s[0], s[1], s[2], s[3]),
+        jsvx::round_pack4(s[4], s[5], s[6], s[7]));
+}
 
-    const float v = rintf(__fadd_rn((float)pred, res));
-    out[pix] = (uint8_t)fminf(fmaxf(v, 0.0f), 255.0f);
+// CTAs of one (h, w) plane: one warp task per four blocks of a block row.
+int plane_ctas(int h, int w) {
+    const int groups = ((w >> 3) + kBlocksPerWarp - 1) / kBlocksPerWarp;
+    return ((h >> 3) * groups + kWarps - 1) / kWarps;
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches on `stream` without
+// Plain C entry point (bound with ctypes): decode the n_planes planes of
+// one picture in one launch.  Per plane p: ptrs[8p .. 8p+7] = levels, lnz,
+// qscale, intra, mv, rep_add, ref, out (device pointers; levels 16-byte,
+// ref and out 8-byte, mv 4-byte aligned); dims[4p .. 4p+3] = h, w,
+// is_chroma and the plane's first CTA, which must be the prefix sum of
+// the planes' CTA counts (ctas is the total).  qtab (192 ints: intra and
+// non-intra matrix, scan position of each spatial position) and c_basis
+// (the IDCT basis, 64 floats, row-major) are on the host and travel with
+// the launch.  Launches on `stream` without
 // synchronising and returns the cudaError_t of the launch (0 = success).
-extern "C" int jsvx_fused_decode_plane(
-        const void* levels, const void* lnz, const void* qscale,
-        const void* intra, const void* mv, const void* rep_add,
-        const void* ref, const void* is_p, const void* qtab,
-        const void* c_basis, void* out, int h, int w, int is_chroma,
-        int quirk, int device, void* stream) {
-    if (h <= 0 || w <= 0 || (h & 7) || (w & 7) || (h >> 3) > 65535) {
+extern "C" int jsvx_fused_decode_picture(
+        int n_planes, const void* const* ptrs, const int* dims, int ctas,
+        const void* is_p, const int* qtab, const float* c_basis, int quirk,
+        int device, void* stream) {
+    if (n_planes < 1 || n_planes > kMaxPlanes) {
         return (int)cudaErrorInvalidValue;
+    }
+    PictureArgs a = {};
+    int begin = 0;
+    for (int p = 0; p < n_planes; ++p) {
+        const int* d = dims + 4 * p;
+        const void* const* q = ptrs + 8 * p;
+        const int h = d[0], w = d[1];
+        if (h <= 0 || w <= 0 || (h & 7) || (w & 7) || d[3] != begin
+                || ((uintptr_t)q[0] & 15) || ((uintptr_t)q[4] & 3)
+                || ((uintptr_t)q[6] & 7) || ((uintptr_t)q[7] & 7)) {
+            return (int)cudaErrorInvalidValue;
+        }
+        PlaneArgs& P = a.plane[p];
+        P.levels = (const int16_t*)q[0];
+        P.lnz = (const uint8_t*)q[1];
+        P.qscale = (const uint8_t*)q[2];
+        P.intra = (const uint8_t*)q[3];
+        P.mv = (const int16_t*)q[4];
+        P.rep_add = (const uint8_t*)q[5];
+        P.ref = (const uint8_t*)q[6];
+        P.out = (uint8_t*)q[7];
+        P.h = h;
+        P.w = w;
+        P.is_chroma = d[2];
+        P.cta_begin = begin;
+        P.groups = ((w >> 3) + kBlocksPerWarp - 1) / kBlocksPerWarp;
+        P.inv_groups = 1.0f / (float)P.groups;
+        begin += plane_ctas(h, w);
+    }
+    if (begin != ctas) return (int)cudaErrorInvalidValue;
+    a.n_planes = n_planes;
+    a.is_p = (const int32_t*)is_p;
+    for (int i = 0; i < 64; ++i) {
+        a.c[i] = c_basis[i];
+        a.qm[0][i] = qtab[i];
+        a.qm[1][i] = qtab[64 + i];
+        a.scan[i] = (uint8_t)qtab[128 + i];
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid(((w >> 3) + kBlocksPerCta - 1) / kBlocksPerCta, h >> 3);
-    const dim3 block(kCtaW, 8);
-    fused_decode_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const int16_t*)levels, (const uint8_t*)lnz, (const uint8_t*)qscale,
-        (const uint8_t*)intra, (const int16_t*)mv, (const uint8_t*)rep_add,
-        (const uint8_t*)ref, (const int32_t*)is_p, (const int32_t*)qtab,
-        (const float*)c_basis, (uint8_t*)out, h, w, is_chroma, quirk);
+    if (quirk) {
+        fused_decode_picture_kernel<true>
+            <<<ctas, kThreads, 0, (cudaStream_t)stream>>>(a);
+    } else {
+        fused_decode_picture_kernel<false>
+            <<<ctas, kThreads, 0, (cudaStream_t)stream>>>(a);
+    }
     return (int)cudaGetLastError();
 }

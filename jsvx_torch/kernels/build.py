@@ -22,7 +22,9 @@ from dataclasses import dataclass
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("fused_decode.cu", "recon.cu", "mc.cu")
+#: ``fused_decode_baseline.cu`` is the fused kernel's first design, which
+#: only ``chip_smoke.py`` launches (its baseline in turns)
+SOURCES = ("fused_decode.cu", "recon.cu", "mc.cu", "fused_decode_baseline.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "jsvx_torch")
 LIB_NAME = "libjsvx_torch_kernels.so"
 
@@ -77,7 +79,10 @@ def _key(csrc: str = CSRC) -> str:
 def _declare(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for name, argtypes in (
-            ("jsvx_fused_decode_plane", [ptr] * 11 + [i32] * 5 + [ptr]),
+            ("jsvx_fused_decode_picture",
+             [i32, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr]),
+            ("jsvx_fused_decode_plane_baseline",
+             [ptr] * 11 + [i32] * 5 + [ptr]),
             ("jsvx_recon_plane", [ptr] * 7 + [i32] * 4 + [ptr]),
             ("jsvx_mc_plane", [ptr] * 4 + [i32] * 4 + [ptr])):
         fn = getattr(lib, name)

@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from jsvx.tools import refmath
+from ..tools import refmath
 
 _M = refmath.YCBCR_TO_RGB.astype(np.float32)          # (3, 3)
 _OFF = refmath.YCBCR_OFFSET.astype(np.float32)        # (3,)

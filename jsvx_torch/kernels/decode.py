@@ -22,8 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jsvx.coding import tables as T
-from jsvx.tools import refmath
+from ..coding import tables as T
+from ..tools import refmath
 
 #: Component key per plane index; [3] is the YUVA alpha plane (full
 #: resolution, luma-like block grid, motion vectors NOT halved).
@@ -55,13 +55,25 @@ class DecodeConstants:
     def device(self) -> torch.device:
         return self.c_basis.device
 
+    @property
+    def qtab_host(self) -> tuple:
+        """192 ints: intra matrix, non-intra matrix, scan position of each
+        spatial position."""
+        return (self.intra_q_key + self.non_intra_q_key
+                + tuple(int(x) for x in T.ZIG_ZAG_INVERSE))
+
     @functools.cached_property
     def qtab(self) -> torch.Tensor:
-        """int32 (3, 64): intra matrix, non-intra matrix, scan position of
-        each spatial position.  Built once per constants object."""
-        rows = [self.intra_q_key, self.non_intra_q_key,
-                tuple(int(x) for x in T.ZIG_ZAG_INVERSE)]
-        return torch.tensor(rows, dtype=torch.int32, device=self.device)
+        """:attr:`qtab_host` as int32 (3, 64) on the device.  Built once per
+        constants object."""
+        return torch.tensor(self.qtab_host, dtype=torch.int32,
+                            device=self.device).reshape(3, 64)
+
+    @functools.cached_property
+    def c_basis_host(self) -> tuple:
+        """The basis as 64 Python floats, row-major (each exactly the f32
+        value); one copy from the device per constants object."""
+        return tuple(self.c_basis.cpu().reshape(-1).tolist())
 
 
 def make_constants(seq, device) -> DecodeConstants:

@@ -1,16 +1,26 @@
 """Wrapper of the fused decode kernel (``csrc/fused_decode.cu``).
 
-One plane of one picture -> reconstructed uint8 plane, in one kernel: the
-port of ``jsvx/kernels/pallas_fused.py`` (``fused_decode_plane`` and its
-per-frame function ``decode_frame_planes_fused``).
+The planes of one picture -> reconstructed uint8 planes, in one kernel
+launch: the port of ``jsvx/kernels/pallas_fused.py`` (its per-frame
+``decode_frame_planes_fused``; ``fused_decode_plane`` is the one-plane
+case of the same launch).
 
 A tensor on the CPU goes to the plain version
-(:func:`jsvx_torch.kernels.decode.decode_frame_plane`).  A tensor on a CUDA
-device launches the kernel or raises; there is no fallback.  ``launches``
-counts the kernel's launches, and nothing else.
+(:func:`jsvx_torch.kernels.decode.decode_frame_plane`, per plane).  A
+tensor on a CUDA device launches the kernel or raises; there is no
+fallback.  ``launches`` counts the kernel's launches, one per picture, and
+nothing else.
+
+The launch layout (:func:`picture_layout`) is computed here and checked
+by the kernel's entry point: a warp decodes four 8x8 blocks side by side
+in one block row, a CTA four warps, and the planes' CTAs follow one
+another, so a CTA finds its plane from the prefix of CTA counts
+(:func:`plane_of_cta`).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -19,6 +29,11 @@ from .decode import (DecodeConstants, comp_is_chroma, decode_frame_plane,
 
 #: number of kernel launches in this process (reset it to 0 to count a run)
 launches = 0
+
+#: the kernel's layout constants (``csrc/fused_decode.cu``)
+MAX_PLANES = 4
+WARPS_PER_CTA = 4
+BLOCKS_PER_WARP = 4
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -42,72 +57,148 @@ def check_is_p(is_p: torch.Tensor, device) -> None:
                          "device")
 
 
+def plane_ctas(h: int, w: int) -> int:
+    """CTAs of one (h, w) plane: a warp task per four blocks of a block
+    row, four warp tasks per CTA."""
+    groups = -(-(w // 8) // BLOCKS_PER_WARP)
+    return -(-((h // 8) * groups) // WARPS_PER_CTA)
+
+
+def picture_layout(shapes) -> tuple:
+    """Plane shapes -> (first CTA of each plane, total CTAs)."""
+    begins, total = [], 0
+    for h, w in shapes:
+        begins.append(total)
+        total += plane_ctas(h, w)
+    return tuple(begins), total
+
+
+def plane_of_cta(begins, cta: int) -> int:
+    """The plane a CTA decodes: the last plane whose first CTA is at or
+    before it (the kernel's search)."""
+    p = 0
+    for i in range(1, len(begins)):
+        if cta >= begins[i]:
+            p = i
+    return p
+
+
+def cta_blocks(h: int, w: int, cta: int) -> list:
+    """The (block row, block column) pairs CTA ``cta`` of an (h, w) plane
+    decodes, counted from the plane's first CTA (the kernel's index
+    math; lanes past the plane's edge decode nothing)."""
+    hb, wb = h // 8, w // 8
+    groups = -(-wb // BLOCKS_PER_WARP)
+    out = []
+    for warp in range(WARPS_PER_CTA):
+        task = cta * WARPS_PER_CTA + warp
+        by = task // groups
+        for b in range(BLOCKS_PER_WARP):
+            bx = (task - by * groups) * BLOCKS_PER_WARP + b
+            if by < hb and bx < wb:
+                out.append((by, bx))
+    return out
+
+
+def _check_plane(c: dict, ref: torch.Tensor, out, device) -> torch.Tensor:
+    h, w = ref.shape
+    if h % 8 or w % 8:
+        raise ValueError(f"plane {h}x{w} is not a multiple of 8")
+    hb, wb = h // 8, w // 8
+    check_tensor("levels", c["levels"], torch.int16, (h, w), device)
+    for key in ("lnz", "q", "intra", "rep_add"):
+        check_tensor(key, c[key], torch.uint8, (hb, wb), device)
+    check_tensor("mv", c["mv"], torch.int16, (hb, wb, 2), device)
+    check_tensor("ref", ref, torch.uint8, (h, w), device)
+    if out is None:
+        out = torch.empty((h, w), dtype=torch.uint8, device=device)
+    else:
+        check_tensor("out", out, torch.uint8, (h, w), device)
+    for name, t, align in (("levels", c["levels"], 16), ("mv", c["mv"], 4),
+                           ("ref", ref, 8), ("out", out, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} is not {align}-byte aligned")
+    return out
+
+
+def _launch_picture(planes: list, is_p: torch.Tensor,
+                    consts: DecodeConstants, quirk: bool) -> list:
+    """One launch over ``planes``, each (comp_inputs, ref, out or None,
+    is_chroma), all on one CUDA device; returns the output planes."""
+    global launches
+    device = planes[0][1].device
+    if device.type != "cuda":
+        raise ValueError(f"no fused decode kernel for device {device}")
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"{len(planes)} planes; the kernel takes 1 to "
+                         f"{MAX_PLANES}")
+    check_is_p(is_p, device)
+    outs, ptrs, dims = [], [], []
+    begins, total = picture_layout([tuple(ref.shape)
+                                    for _, ref, _, _ in planes])
+    for (c, ref, out, chroma), begin in zip(planes, begins):
+        out = _check_plane(c, ref, out, device)
+        outs.append(out)
+        ptrs += [c["levels"].data_ptr(), c["lnz"].data_ptr(),
+                 c["q"].data_ptr(), c["intra"].data_ptr(),
+                 c["mv"].data_ptr(), c["rep_add"].data_ptr(),
+                 ref.data_ptr(), out.data_ptr()]
+        dims += [ref.shape[0], ref.shape[1], int(chroma), begin]
+
+    from .build import load
+
+    lib = load().lib
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = lib.jsvx_fused_decode_picture(
+        len(planes), (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(dims))(*dims), total, is_p.data_ptr(),
+        (ctypes.c_int * 192)(*consts.qtab_host),
+        (ctypes.c_float * 64)(*consts.c_basis_host),
+        int(quirk), device.index or 0, stream)
+    if rc != 0:
+        raise RuntimeError(f"fused decode kernel launch failed: "
+                           f"cudaError_t {rc}")
+    launches += 1
+    return outs
+
+
 def fused_decode_plane(comp_inputs: dict, ref: torch.Tensor,
                        is_p: torch.Tensor, consts: DecodeConstants,
                        is_chroma: bool, quirk_oddify_zeros: bool = False,
                        out: torch.Tensor | None = None) -> torch.Tensor:
-    """One plane of one picture -> uint8 plane (``out`` if given).
+    """One plane of one picture -> uint8 plane (``out`` if given): the
+    one-plane case of :func:`decode_frame_planes_fused`.
 
     ``comp_inputs`` holds the per-block grids of the plane: ``levels``
     int16 (h, w); ``lnz``, ``q``, ``intra``, ``rep_add`` uint8 (h/8, w/8);
     ``mv`` int16 (h/8, w/8, 2).  ``ref`` is the previous plane (uint8
     (h, w)); ``is_p`` an int32 tensor of one element.
     """
-    global launches
-    device = ref.device
-    if device.type == "cpu":
+    if ref.device.type == "cpu":
         plane = decode_frame_plane(comp_inputs, ref, is_p, consts,
                                    is_chroma, quirk_oddify_zeros)
         if out is None:
             return plane
         out.copy_(plane)
         return out
-    if device.type != "cuda":
-        raise ValueError(f"no fused decode kernel for device {device}")
-
-    h, w = ref.shape
-    hb, wb = h // 8, w // 8
-    if h % 8 or w % 8:
-        raise ValueError(f"plane {h}x{w} is not a multiple of 8")
-    c = comp_inputs
-    check_tensor("levels", c["levels"], torch.int16, (h, w), device)
-    for key in ("lnz", "q", "intra", "rep_add"):
-        check_tensor(key, c[key], torch.uint8, (hb, wb), device)
-    check_tensor("mv", c["mv"], torch.int16, (hb, wb, 2), device)
-    check_tensor("ref", ref, torch.uint8, (h, w), device)
-    check_is_p(is_p, device)
-    qtab, c_basis = consts.qtab, consts.c_basis
-    check_tensor("qtab", qtab, torch.int32, (3, 64), device)
-    check_tensor("c_basis", c_basis, torch.float32, (8, 8), device)
-    if out is None:
-        out = torch.empty((h, w), dtype=torch.uint8, device=device)
-    else:
-        check_tensor("out", out, torch.uint8, (h, w), device)
-
-    from .build import load
-
-    lib = load().lib
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.jsvx_fused_decode_plane(
-        c["levels"].data_ptr(), c["lnz"].data_ptr(), c["q"].data_ptr(),
-        c["intra"].data_ptr(), c["mv"].data_ptr(), c["rep_add"].data_ptr(),
-        ref.data_ptr(), is_p.data_ptr(), qtab.data_ptr(),
-        c_basis.data_ptr(), out.data_ptr(), h, w, int(is_chroma),
-        int(quirk_oddify_zeros), device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused decode kernel launch failed: "
-                           f"cudaError_t {rc}")
-    launches += 1
-    return out
+    return _launch_picture([(comp_inputs, ref, out, is_chroma)], is_p,
+                           consts, quirk_oddify_zeros)[0]
 
 
 def decode_frame_planes_fused(frame: dict, refs: tuple,
                               consts: DecodeConstants,
                               quirk_oddify_zeros: bool = False,
                               outs: tuple | None = None) -> tuple:
-    """All planes of one picture, one kernel launch per plane."""
-    return tuple(
-        fused_decode_plane(frame[k], refs[i], frame["is_p"], consts,
-                           comp_is_chroma(i), quirk_oddify_zeros,
-                           out=None if outs is None else outs[i])
-        for i, k in enumerate(frame_comp_keys(frame)))
+    """All planes of one picture: one kernel launch on a card, the plain
+    version plane by plane on the CPU."""
+    keys = frame_comp_keys(frame)
+    if refs[0].device.type == "cpu":
+        return tuple(
+            fused_decode_plane(frame[k], refs[i], frame["is_p"], consts,
+                               comp_is_chroma(i), quirk_oddify_zeros,
+                               out=None if outs is None else outs[i])
+            for i, k in enumerate(keys))
+    return tuple(_launch_picture(
+        [(frame[k], refs[i], None if outs is None else outs[i],
+          comp_is_chroma(i)) for i, k in enumerate(keys)],
+        frame["is_p"], consts, quirk_oddify_zeros))

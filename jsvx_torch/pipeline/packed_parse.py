@@ -1,11 +1,11 @@
 """Host front end: header walk and per-GOP parse, compact and dense.
 
-JAX-free copies of what the port needs from
-``jsvx/pipeline/packed_parse.py`` and ``jsvx/pipeline/parallel_parse.py``
-(whose package imports JAX).  The C++ parser (``jsvx.bitstream.native``)
-writes each picture's coded coefficients, one uint16 entry each, and the
-per-macroblock sideband; :func:`parse_gop_compact` concatenates a GOP's
-entries into one bucket-padded array per component.
+Copies of what the port needs from ``jsvx/pipeline/packed_parse.py`` and
+``jsvx/pipeline/parallel_parse.py``.  The C++ parser
+(``jsvx_torch.bitstream.native``) writes each picture's coded
+coefficients, one uint16 entry each, and the per-macroblock sideband;
+:func:`parse_gop_compact` concatenates a GOP's entries into one
+bucket-padded array per component.
 :func:`parse_gop_packed` parses a GOP into dense stacked planes instead:
 the wire of the oddify-zeros quirk and of GOPs the compact wire cannot
 express.  The port's kernels read per-block motion vectors directly, so
@@ -19,13 +19,12 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from jsvx.bitstream.bitio import BitReader
-from jsvx.bitstream.container import StartCodeIndex, parse_container_header
-from jsvx.bitstream.native import get_native_parser
-from jsvx.bitstream.parser import (FrameTensors, StreamParser,
-                                   alloc_frame_tensors)
-from jsvx.coding import tables as T
-
+from ..bitstream.bitio import BitReader
+from ..bitstream.container import StartCodeIndex, parse_container_header
+from ..bitstream.native import get_native_parser
+from ..bitstream.parser import (FrameTensors, StreamParser,
+                                alloc_frame_tensors)
+from ..coding import tables as T
 from ..kernels.decode import COMP_KEYS, comp_is_chroma
 
 
@@ -159,8 +158,6 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
     grown in place so successive GOPs keep stable shapes.
     """
     native = get_native_parser()
-    if native is None:
-        raise RuntimeError("compact parse requires the C++ parser")
     n_comps = meta.n_components
     mb_h, mb_w = seq.mb_height, seq.mb_width
     n = len(group)
@@ -265,8 +262,6 @@ def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
     only readers of the DC override) are always coded.
     """
     native = get_native_parser()
-    if native is None:
-        raise RuntimeError("packed parse requires the C++ parser")
     pool = pool or BufferPool()
     n_comps = meta.n_components
     mb_h, mb_w = seq.mb_height, seq.mb_width

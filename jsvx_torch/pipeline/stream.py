@@ -1,7 +1,7 @@
 """Whole-stream decode on one device: the dense stream decoder.
 
 The port of ``jsvx/pipeline/stream.py``.  The host parses every picture
-with jsvx's JAX-free ``StreamParser`` (its C++ back end where it builds),
+with the port's ``StreamParser`` (its C++ back end),
 packs each picture with :func:`jsvx_torch.kernels.decode.frame_to_device`,
 stacks a GOP's pictures, and copies the GOP to the device as one wire;
 the device decodes it with the ``impl`` chosen (see
@@ -16,17 +16,16 @@ from dataclasses import dataclass
 
 import torch
 
-from jsvx.bitstream.bitio import BitReader
-from jsvx.bitstream.container import StartCodeIndex, parse_container_header
-from jsvx.bitstream.parser import StreamParser
-from jsvx.coding import tables as T
-from jsvx.runtime.profiler import Metrics
-
+from ..bitstream.bitio import BitReader
+from ..bitstream.container import StartCodeIndex, parse_container_header
+from ..bitstream.parser import StreamParser
+from ..coding import tables as T
 from ..kernels.decode import frame_to_device, make_constants
 from .gop import (decode_gop, frame_at, frame_decoder, stack_device_frames,
                   zero_refs)
 from .packed_parse import BufferPool
 from .transcode import pack, synchronize, to_device
+from ..runtime.profiler import Metrics
 from .wire import unflatten_wire
 
 
@@ -81,10 +80,11 @@ class StreamResult:
 
 
 class StreamDecoder:
-    """Decode a complete in-memory JSV stream on ``device``."""
+    """Decode a complete in-memory JSV stream on ``device`` (a CUDA card
+    unless the caller asks for ``"cpu"``)."""
 
     def __init__(self, data: bytes, quirk_oddify_zeros: bool = False, *,
-                 device):
+                 device="cuda"):
         self.data = bytes(data)
         self.quirk = quirk_oddify_zeros
         self.device = torch.device(device)

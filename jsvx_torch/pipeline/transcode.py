@@ -25,11 +25,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from jsvx.bitstream.native import get_native_parser
-from jsvx.runtime.multihost import GopManifest
-from jsvx.runtime.profiler import Metrics
-
 from ..kernels.decode import make_constants
+from ..runtime.multihost import GopManifest
+from ..runtime.profiler import Metrics
 from .gop import decode_gop_wire, frame_decoder, zero_refs
 from .packed_parse import (BufferPool, parse_gop_compact, parse_gop_packed,
                            walk_stream)
@@ -68,13 +66,16 @@ def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.clone() if device.type == "cpu" else host.to(device)
 
 
-def transcode(data: bytes, sink=None, *, device, impl: str = "fused",
+def transcode(data: bytes, sink=None, *, device="cuda",
+              impl: str = "fused",
               manifest: GopManifest | None = None,
               process_id: int = 0, process_count: int = 1,
               n_parse_threads: int | None = None,
               quirk_oddify_zeros: bool = False,
               metrics: Metrics | None = None) -> TranscodeResult:
-    """Decode every (assigned, pending) GOP of ``data`` on ``device``.
+    """Decode every (assigned, pending) GOP of ``data`` on ``device`` (a
+    CUDA card unless the caller asks for ``"cpu"``).  The host parse runs
+    in the C++ parser, built on first use; a failed build raises.
 
     ``sink(gop_index, frames)`` receives each GOP's decoded (Y, Cb, Cr[,
     A]) stacks, uint8 tensors on ``device``.  ``impl`` is ``"fused"`` or
@@ -83,10 +84,6 @@ def transcode(data: bytes, sink=None, *, device, impl: str = "fused",
     round-robin share is decoded.
     """
     frame_decoder(impl)                  # reject an unknown impl early
-    if get_native_parser() is None:
-        raise NotImplementedError(
-            "transcode without the C++ parser is not ported yet "
-            "(ROADMAP A4)")
     run = _transcode_packed if quirk_oddify_zeros else _transcode_compact
     return run(data, sink, device=torch.device(device), impl=impl,
                manifest=manifest, process_id=process_id,

@@ -34,6 +34,7 @@ from jsvx.tools.encoder import EncoderConfig, JsvEncoder
 from jsvx.tools.oracle import decode_stream_oracle
 from jsvx.tools.refmath import ycbcr_to_rgb as ref_rgb
 from jsvx_torch.api import Decoder, Player
+from jsvx_torch.runtime.source import ByteSource as PortByteSource
 from jsvx_torch.kernels import fused
 from jsvx_torch.pipeline.stream import StreamDecoder
 
@@ -230,18 +231,24 @@ def test_backend_is_checked():
 
 
 def test_top_level_exports():
+    """The port's API is its own classes, not jsvx's or subclasses of
+    them, with jsvx's names and states."""
     import jsvx_torch
     import jsvx_torch.api as api
+    from jsvx.api.player import WallClockAudio
 
     assert jsvx_torch.Player is api.Player and jsvx_torch.Decoder is \
         api.Decoder
-    assert jsvx_torch.PlayerConfig is PlayerConfig
-    assert issubclass(api.Player, JsvxPlayer)
-    assert issubclass(api.Decoder, JsvxDecoder)
-    from jsvx.api.player import WallClockAudio
-
-    assert api.WallClockAudio is WallClockAudio
-    assert api.ReadyState is ReadyState
+    assert jsvx_torch.PlayerConfig is api.PlayerConfig
+    for name in ("Player", "Decoder", "PlayerConfig", "WallClockAudio",
+                 "ReadyState", "NetworkState", "MediaError", "DecodedFrame"):
+        cls = getattr(api, name)
+        assert cls.__module__.startswith("jsvx_torch.api."), name
+    assert not issubclass(api.Player, JsvxPlayer)
+    assert not issubclass(api.Decoder, JsvxDecoder)
+    assert api.WallClockAudio is not WallClockAudio
+    assert {s.name: int(s) for s in api.ReadyState} == \
+        {s.name: int(s) for s in ReadyState}
 
 
 # ---------------------------------------------------------------------------
@@ -366,9 +373,10 @@ def test_player_emit_rgb_crops_to_the_container(small_clip):
     assert _np(raw[0])[0].shape == (96, 112)
 
 
-class _HeldSource(ByteSource):
+class _HeldSource(PortByteSource, ByteSource):
     """An asynchronous source that holds every callback until the test
-    calls it, and records requests and cancels."""
+    calls it, and records requests and cancels (a source of either
+    package)."""
 
     def __init__(self, data):
         self.data = bytes(data)
@@ -469,15 +477,15 @@ def test_cli_play_and_info(stream, tmp_path, capsys):
 def test_decoder_on_the_card_equals_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the fused kernel has no CPU mode")
-    import bench
+    from jsvx_torch.tools.fixture import zoom_clip
 
     data = JsvEncoder(128, 96, EncoderConfig(
         gop_size=4, quantizer_scale=5, me_range=6, half_pel_refine=True)) \
-        .encode(bench._zoom_clip(96, 128, 8, seed=5))
+        .encode(zoom_clip(96, 128, 8, seed=5))
     for scan in (True, False):
         fused.launches = 0
         _, gpu = _decode(data, scan=scan, device="cuda")
-        assert fused.launches == 8 * 3
+        assert fused.launches == 8            # one launch per picture
         _, cpu = _decode(data, scan=scan, device="cpu")
         assert all(p.device.type == "cuda" for f in gpu for p in f.planes)
         _bit_equal([tuple(p.cpu().numpy() for p in f.planes) for f in gpu],

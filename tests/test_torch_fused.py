@@ -86,6 +86,73 @@ def test_frame_planes_on_cpu():
         assert torch.equal(g, w)
 
 
+def test_frame_planes_on_cpu_yuva():
+    """Four planes (YUVA: the alpha plane full size, luma-like)."""
+    frame = {"is_p": torch.tensor(1, dtype=torch.int32)}
+    refs = []
+    for key, (h, w), seed in zip(("y", "cb", "cr", "a"),
+                                 ((48, 64), (24, 32), (24, 32), (48, 64)),
+                                 (5, 6, 7, 8)):
+        c, r = _plane_inputs(h, w, seed)
+        frame[key], ref = _on(c, r, "cpu")
+        refs.append(ref)
+    consts = make_constants(None, "cpu")
+    before = fused.launches
+    got = fused.decode_frame_planes_fused(frame, tuple(refs), consts, True)
+    want = decode_frame_planes(frame, tuple(refs), consts, True)
+    assert fused.launches == before and len(got) == 4
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+#: the plane shapes of the pictures the port decodes: 1080p, CIF, 48x64,
+#: the 320x320 256-vector stream, a 4-plane YUVA stream, and chroma planes
+#: whose block count per row (22, 5, 1) is not a multiple of four
+PICTURES = {
+    "1080p": [(1088, 1920), (544, 960), (544, 960)],
+    "cif": [(288, 352), (144, 176), (144, 176)],
+    "48x64": [(48, 64), (24, 32), (24, 32)],
+    "320x320": [(320, 320), (160, 160), (160, 160)],
+    "yuva_96x128": [(96, 128), (48, 64), (48, 64), (96, 128)],
+    "odd_chroma": [(48, 80), (24, 40), (24, 40)],
+    "one_block_chroma": [(16, 16), (8, 8), (8, 8)],
+}
+
+
+@pytest.mark.parametrize("name", sorted(PICTURES))
+def test_picture_layout_covers_every_block_once(name):
+    """The per-picture descriptor packing: each plane's first CTA is the
+    prefix sum of the CTA counts before it, every CTA finds its own plane,
+    and the CTAs of a plane decode each of its 8x8 blocks exactly once,
+    with no CTA left empty."""
+    shapes = PICTURES[name]
+    begins, total = fused.picture_layout(shapes)
+    counts = [fused.plane_ctas(h, w) for h, w in shapes]
+    assert list(begins) == [sum(counts[:i]) for i in range(len(shapes))]
+    assert total == sum(counts)
+    for p, (h, w) in enumerate(shapes):
+        end = begins[p] + counts[p]
+        assert all(fused.plane_of_cta(begins, cta) == p
+                   for cta in range(begins[p], end))
+        seen = {}
+        for local in range(counts[p]):
+            blocks = fused.cta_blocks(h, w, local)
+            assert blocks, (p, local)          # no empty CTA
+            for blk in blocks:
+                seen[blk] = seen.get(blk, 0) + 1
+        assert seen == {(by, bx): 1 for by in range(h // 8)
+                        for bx in range(w // 8)}
+        groups = -(-(w // 8) // fused.BLOCKS_PER_WARP)
+        assert counts[p] == -(-(h // 8) * groups // fused.WARPS_PER_CTA)
+
+
+def test_picture_layout_of_1080p():
+    """1088x1920: 136 block rows of 60 warp tasks, four per CTA; each
+    544x960 chroma plane 68 rows of 30."""
+    begins, total = fused.picture_layout(PICTURES["1080p"])
+    assert begins == (0, 2040, 2550) and total == 3060
+
+
 def test_wrapper_rejects_other_devices():
     c, ref = _plane_inputs(16, 16, 4)
     tc, tref = _on(c, ref, "meta")
@@ -105,7 +172,8 @@ def test_nvcc_command_targets_hopper_without_fma():
     assert "-c" in obj and "-shared" not in obj
     assert obj[obj.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert "-fmad=false" in obj and cmd[-1] == "k.cu"
-    assert build.SOURCES == ("fused_decode.cu", "recon.cu", "mc.cu")
+    assert build.SOURCES == ("fused_decode.cu", "recon.cu", "mc.cu",
+                             "fused_decode_baseline.cu")
     assert all(os.path.exists(os.path.join(build.CSRC, s))
                for s in build.SOURCES)
     assert build.BUILD_ROOT == os.path.join(REPO, "build", "jsvx_torch")
@@ -150,12 +218,27 @@ def test_kernel_matches_plain_on_the_card():
         torch.cuda.synchronize()
         assert fused.launches == before + 1
         assert torch.equal(got, want), (h, w, chroma, is_p, quirk)
+    # whole pictures: one launch each, every plane equal to the plain one
+    for name, shapes in sorted(PICTURES.items()):
+        frame = {"is_p": torch.tensor(1, dtype=torch.int32, device="cuda")}
+        refs = []
+        for key, (h, w) in zip(("y", "cb", "cr", "a"), shapes):
+            frame[key], ref = _on(*_plane_inputs(h, w, seed=h + w), "cuda")
+            refs.append(ref)
+        before = fused.launches
+        got = fused.decode_frame_planes_fused(frame, tuple(refs), consts)
+        want = decode_frame_planes(frame, tuple(refs), consts)
+        torch.cuda.synchronize()
+        assert fused.launches == before + 1, name
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
 
 
 def test_port_never_imports_jax():
-    """Importing every module of the port and decoding a clip on the CPU,
-    through both routes, both wires, the stream decoder and the Player
-    (with RGB), loads no JAX (the card's machine has none)."""
+    """Importing every module of the port and decoding a clip made by the
+    port's encoder on the CPU, through both routes, both wires, the stream
+    decoder and the Player (with RGB), loads no JAX (the card's machine
+    has none)."""
     code = """
 import sys
 import numpy as np
@@ -165,7 +248,7 @@ from jsvx_torch.kernels import carry, color, mc, recon
 from jsvx_torch.pipeline import gop, packed_parse, stream
 from jsvx_torch.api import Player, PlayerConfig
 from jsvx_torch.pipeline.transcode import transcode
-from jsvx.tools.encoder import EncoderConfig, JsvEncoder
+from jsvx_torch.tools.encoder import EncoderConfig, JsvEncoder
 yy, xx = np.mgrid[0:32, 0:48]
 frames = [((96 + 40 * np.sin((xx + 2 * t) / 5.0)).astype(np.uint8),
            np.full((16, 24), 120, np.uint8), np.full((16, 24), 130, np.uint8))
