@@ -8,24 +8,27 @@ each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. the build of ``jsvx_torch/csrc/`` into ``build/jsvx_torch/`` (with the
-   ptxas register and spill report);
+   ptxas register and spill report): the kernels' library and, at the
+   same time, that of their first designs (``csrc/*_baseline.cu``, one
+   launch per plane), which only this script loads;
 3. each kernel against its plain PyTorch version on the same CUDA
-   tensors, required bit-equal (0 differing pixels): the fused decode
-   kernel (one launch per picture), also against its first design
-   (``csrc/fused_decode_baseline.cu``, one launch per plane), and the MC
-   and reconstruction kernels of the two-kernel route, whose output must
-   equal the fused kernel's; on every frame and plane of GOP 0 of the
-   1080p fixture, one frame with the oddify-zeros quirk, both GOPs of a
-   320x320 stream with 256 distinct motion vectors in one P frame, a
-   48x64 stream whose first GOP only the dense wire can carry, a CIF
-   stream and a 4-plane YUVA stream; the MC kernel also on the tall-pad
-   and out-of-bounds clamp cases of ``tests/test_fast_paths.py``;
+   tensors, required bit-equal (0 differing pixels), and against its
+   first design: the fused decode kernel, the MC kernel and the
+   reconstruction kernel, one launch per picture each, the
+   reconstruction also equal to the fused kernel's output; on every frame
+   and plane of GOP 0 of the 1080p fixture, one frame with the
+   oddify-zeros quirk, both GOPs of a 320x320 stream with 256 distinct
+   motion vectors in one P frame, a 48x64 stream whose first GOP only the
+   dense wire can carry, a CIF stream and a 4-plane YUVA stream; the MC
+   kernel also on the tall-pad and out-of-bounds clamp cases of
+   ``tests/test_fast_paths.py``, one plane and whole pictures;
 4. the paths end to end on the card, each kernel counted:
    ``jsvx_torch.transcode`` of the 1080p fixture (the fused kernel once
    per picture), bit-equal to the same call on the CPU;
    ``StreamDecoder(...).decode(impl="two_kernel")`` (the MC and
-   reconstruction kernels once per frame and plane each), bit-equal to the
-   CPU and to ``impl="fused"`` on the card; the same three checks for
+   reconstruction kernels once per picture each, no torch sideband
+   expansion), bit-equal to the CPU and to ``impl="fused"`` on the card;
+   the same three checks for
    ``transcode`` with the quirk, with ``impl="two_kernel"`` and on a
    stream whose GOP falls back to the dense wire; CIF and YUVA streams
    through both routes within 1 LSB of the float64 oracle;
@@ -37,10 +40,11 @@ each printing its own lines:
    the YUVA stream's alpha through the Player, the 256-vector stream
    through the Decoder, and ``python -m jsvx_torch play`` in a subprocess;
 5. timings (CUDA events, median of 30 after warm-up; host clock for the
-   end-to-end runs), each with the card's name and power limit: the fused
-   kernel per 1080p picture, warm in L2 and with L2 flushed between calls,
-   in turns with its first design, beside the bytes it must move and its
-   bound; the MC and reconstruction kernels per plane; the GOP decode,
+   end-to-end runs), each with the card's name and power limit: each
+   kernel per 1080p picture, warm in L2 and with L2 flushed between
+   calls, in turns with its first design, beside the bytes it must move
+   and its bound; the GOP decode of both routes (the two-kernel route
+   also with its first designs and the torch sideband expansion),
    ``transcode``, ``StreamDecoder``, the Decoder, the Player and colour.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -52,11 +56,13 @@ the port's own encoder, oracle and fixture make and check the streams.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -68,7 +74,8 @@ from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
                                        frame_comp_keys, make_constants,
                                        predict_plane)
 from jsvx_torch.kernels.expand import expand_compact_gop
-from jsvx_torch.pipeline.gop import decode_gop_wire, frame_at, zero_refs
+from jsvx_torch.pipeline.gop import (FRAME_DECODERS, decode_gop_wire,
+                                     frame_at, zero_refs)
 from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
                                               parse_gop_packed, walk_stream)
 from jsvx_torch.pipeline.stream import StreamDecoder
@@ -208,7 +215,7 @@ def baseline_plane(c: dict, ref: torch.Tensor, is_p: torch.Tensor, consts,
     (``csrc/fused_decode_baseline.cu``), which nothing else launches."""
     h, w = ref.shape
     out = torch.empty_like(ref) if out is None else out
-    rc = build.load().lib.jsvx_fused_decode_plane_baseline(
+    rc = build.load("baselines").lib.jsvx_fused_decode_plane_baseline(
         c["levels"].data_ptr(), c["lnz"].data_ptr(), c["q"].data_ptr(),
         c["intra"].data_ptr(), c["mv"].data_ptr(), c["rep_add"].data_ptr(),
         ref.data_ptr(), is_p.data_ptr(), consts.qtab.data_ptr(),
@@ -219,15 +226,86 @@ def baseline_plane(c: dict, ref: torch.Tensor, is_p: torch.Tensor, consts,
     return out
 
 
+def mc_first_design(ref: torch.Tensor, mv: torch.Tensor,
+                    rep_add: torch.Tensor, chroma: bool,
+                    out: torch.Tensor | None = None) -> torch.Tensor:
+    """One plane through the MC kernel's first design
+    (``csrc/mc_baseline.cu``), which nothing else launches."""
+    h, w = ref.shape
+    out = (torch.empty((h, w), dtype=torch.int16, device=ref.device)
+           if out is None else out)
+    rc = build.load("baselines").lib.jsvx_mc_plane_baseline(
+        ref.data_ptr(), mv.data_ptr(), rep_add.data_ptr(), out.data_ptr(),
+        h, w, int(chroma), ref.device.index or 0,
+        torch.cuda.current_stream(ref.device).cuda_stream)
+    check(rc == 0, f"first-design MC launch failed: cudaError_t {rc}")
+    return out
+
+
+def recon_first_design(levels: torch.Tensor, mult: torch.Tensor,
+                       flags: torch.Tensor, pred: torch.Tensor,
+                       is_p: torch.Tensor, consts, quirk: bool = False,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """One plane through the reconstruction kernel's first design
+    (``csrc/recon_baseline.cu``), which nothing else launches.  It takes
+    the per-pixel sideband (``mult``/``flags``, from
+    :func:`recon.expand_sideband`), as jsvx's ``_recon_kernel`` does."""
+    h, w = levels.shape
+    out = (torch.empty((h, w), dtype=torch.uint8, device=levels.device)
+           if out is None else out)
+    rc = build.load("baselines").lib.jsvx_recon_plane_baseline(
+        levels.data_ptr(), mult.data_ptr(), flags.data_ptr(),
+        pred.data_ptr(), is_p.data_ptr(), consts.c_basis.data_ptr(),
+        out.data_ptr(), h, w, int(quirk), levels.device.index or 0,
+        torch.cuda.current_stream(levels.device).cuda_stream)
+    check(rc == 0, f"first-design recon launch failed: cudaError_t {rc}")
+    return out
+
+
+def first_design_frame(frame: dict, refs: tuple, consts,
+                       quirk: bool = False, outs: tuple | None = None
+                       ) -> tuple:
+    """The two-kernel route with the first designs, for timing: per plane
+    the torch sideband expansion and one launch of each first-design
+    kernel; registered as ``impl="two_kernel_first_design"`` by
+    :func:`first_design_route`."""
+    planes = []
+    for ci, key in enumerate(frame_comp_keys(frame)):
+        c = frame[key]
+        mult, flags = recon.expand_sideband(c, consts)
+        pred = mc_first_design(refs[ci], c["mv"], c["rep_add"],
+                               comp_is_chroma(ci))
+        planes.append(recon_first_design(
+            c["levels"], mult, flags, pred, frame["is_p"], consts, quirk,
+            None if outs is None else outs[ci]))
+    return tuple(planes)
+
+
+@contextlib.contextmanager
+def first_design_route():
+    """``impl="two_kernel_first_design"`` (:func:`first_design_frame`)
+    registered in the GOP loop's routes inside the block, for the timings
+    of the route with its first designs, and removed after it, whatever
+    happens."""
+    FRAME_DECODERS["two_kernel_first_design"] = first_design_frame
+    try:
+        yield
+    finally:
+        del FRAME_DECODERS["two_kernel_first_design"]
+
+
 def kernels_vs_plain(label: str, data: bytes, gi: int, device,
                      quirk_frames=()) -> dict:
     """Every frame and plane of GOP ``gi`` through each kernel and its
     plain version on the same CUDA tensors: the fused decode kernel (one
     launch for the picture), against the plain version and against its
-    first design plane by plane, and the two-kernel route's MC and
-    reconstruction kernels, whose output must also equal the fused
-    kernel's.  The kernels' output carries as the next frame's reference.
-    Returns the max |kernel - plain| of each kernel."""
+    first design plane by plane; the two-kernel route's MC kernel (one
+    launch for the picture) against its plain version and its first
+    design; its reconstruction kernel (one launch for the picture)
+    against its plain version and its first design (on the expanded
+    sideband), and equal to the fused kernel's output.  The fused
+    kernel's output carries as the next frame's reference.  Returns the
+    max |kernel - plain| of each kernel."""
     meta, seq, _, _, _, dense = gop_on_card(data, gi, device)
     n_frames = int(dense["is_p"].shape[0])
     consts = make_constants(seq, device)
@@ -238,33 +316,37 @@ def kernels_vs_plain(label: str, data: bytes, gi: int, device,
         frame = frame_at(dense, i)
         is_p = frame["is_p"]
         for quirk in sorted({False, i in quirk_frames}):
-            before = fused.launches
+            before = (fused.launches, mc.launches, recon.launches)
             picture = fused.decode_frame_planes_fused(frame, refs, consts,
                                                       quirk)
-            check(fused.launches == before + 1,
-                  f"{label}: {fused.launches - before} fused launches for "
-                  f"one picture")
+            preds = mc.predict_picture_mc(frame, refs)
+            rk = recon.recon_picture(frame, preds, is_p, consts, quirk)
+            after = (fused.launches, mc.launches, recon.launches)
+            check(tuple(a - b for a, b in zip(after, before)) == (1, 1, 1),
+                  f"{label}: launches {before} -> {after} for one picture "
+                  f"(fused, MC, recon)")
             for ci, key in enumerate(frame_comp_keys(frame)):
                 c, chroma, fk = frame[key], comp_is_chroma(ci), picture[ci]
+                pk = preds[ci]
                 fp = decode_frame_plane(c, refs[ci], is_p, consts, chroma,
                                         quirk)
                 fb = baseline_plane(c, refs[ci], is_p, consts, chroma, quirk)
-                pk = mc.predict_plane_mc(refs[ci], c["mv"], c["rep_add"],
-                                         chroma)
                 pp = predict_plane(refs[ci], c["mv"], c["rep_add"],
                                    chroma).to(torch.int16)
-                mult, flags = recon.expand_sideband(c, consts)
-                rk = recon.fused_recon_plane(c["levels"], mult, flags, pk,
-                                             is_p, consts, quirk)
-                rp = recon.recon_plane(c["levels"], mult, flags, pp, is_p,
-                                       consts, quirk)
+                pb = mc_first_design(refs[ci], c["mv"], c["rep_add"], chroma)
+                rp = recon.recon_plane_blocks(c, pp, is_p, consts, quirk)
+                rb = recon_first_design(c["levels"],
+                                        *recon.expand_sideband(c, consts),
+                                        pk, is_p, consts, quirk)
                 sync(device)
                 n_diff = {name: int((k != p).sum()) for name, k, p in (
                     ("fused", fk, fp), ("baseline", fk, fb), ("mc", pk, pp),
-                    ("recon", rk, rp), ("route", rk, fk))}
+                    ("mc_first_design", pk, pb), ("recon", rk[ci], rp),
+                    ("recon_first_design", rk[ci], rb),
+                    ("route", rk[ci], fk))}
                 err = {name: int((k.int() - p.int()).abs().max())
                        for name, k, p in (("fused", fk, fp), ("mc", pk, pp),
-                                          ("recon", rk, rp))}
+                                          ("recon", rk[ci], rp))}
                 where = dict(stream=label, gop=gi, frame=i, plane=key,
                              quirk=quirk, shape=list(fk.shape),
                              is_p=int(is_p))
@@ -274,8 +356,12 @@ def kernels_vs_plain(label: str, data: bytes, gi: int, device,
                      max_abs_err=err["fused"])
                 emit("two_kernel_vs_plain", **where,
                      mc_mismatching_pixels=n_diff["mc"],
+                     mc_vs_first_design_mismatching_pixels=n_diff[
+                         "mc_first_design"],
                      mc_max_abs_err=err["mc"],
                      recon_mismatching_pixels=n_diff["recon"],
+                     recon_vs_first_design_mismatching_pixels=n_diff[
+                         "recon_first_design"],
                      recon_max_abs_err=err["recon"],
                      vs_fused_kernel_mismatching_pixels=n_diff["route"])
                 check(not any(n_diff.values()),
@@ -289,10 +375,12 @@ def kernels_vs_plain(label: str, data: bytes, gi: int, device,
 
 
 def mc_edge_cases(device) -> int:
-    """The MC kernel vs its plain version on the cases of
-    tests/test_fast_paths.py: a 24x128 plane with vectors (141, 3) and
-    (-140, -95) (the tall-pad case), and a 32x32 plane with vectors
-    pointing out of the picture (the clamp case); luma and chroma."""
+    """The MC kernel vs its plain version and its first design on the
+    cases of tests/test_fast_paths.py: a 24x128 plane with vectors (141,
+    3) and (-140, -95) (the tall-pad case), and a 32x32 plane with vectors
+    pointing out of the picture (the clamp case); luma and chroma, each
+    as a one-plane launch and as planes of one picture launch (the plane
+    as Y, Cb and Cr: one luma and two chroma predictions)."""
     rng = np.random.default_rng(1234)
     worst = 0
     for case, (h, w), vectors in (
@@ -304,16 +392,30 @@ def mc_edge_cases(device) -> int:
         mv = torch.from_numpy(np.array(vectors, np.int16)[idx]).to(device)
         rep = torch.from_numpy((rng.random((h // 8, w // 8)) < 0.2)
                                .astype(np.uint8)).to(device)
+        before = mc.launches
+        picture = mc.predict_picture_mc(
+            {k: {"mv": mv, "rep_add": rep} for k in ("y", "cb", "cr")},
+            (ref, ref, ref))
+        check(mc.launches == before + 1, f"MC {case}: picture launches")
         for chroma in (False, True):
             k = mc.predict_plane_mc(ref, mv, rep, chroma)
             p = predict_plane(ref, mv, rep, chroma).to(torch.int16)
+            b = mc_first_design(ref, mv, rep, chroma)
             sync(device)
             n_diff = int((k != p).sum())
+            n_pic = sum(int((q != p).sum())
+                        for q in (picture[1:] if chroma else picture[:1]))
+            n_first = int((k != b).sum())
             err = int((k.int() - p.int()).abs().max())
             emit("mc_edge_case", case=case, shape=[h, w], chroma=chroma,
-                 mismatching_pixels=n_diff, max_abs_err=err)
-            check(n_diff == 0, f"MC {case} chroma={chroma}: {n_diff} "
-                               f"pixels differ between kernel and plain")
+                 mismatching_pixels=n_diff,
+                 picture_launch_mismatching_pixels=n_pic,
+                 vs_first_design_mismatching_pixels=n_first,
+                 max_abs_err=err)
+            check(n_diff == n_pic == n_first == 0,
+                  f"MC {case} chroma={chroma}: {n_diff} pixels differ "
+                  f"between kernel and plain, {n_pic} in the picture "
+                  f"launch, {n_first} from the first design")
             worst = max(worst, err)
     return worst
 
@@ -353,17 +455,19 @@ def check_vs_oracle(label: str, data: bytes, device,
 
 
 def stream_frames(data: bytes, device, impl: str) -> list:
+    """Every frame through ``StreamDecoder``."""
     res = StreamDecoder(data, device=device).decode(impl=impl)
     return [tuple(p.cpu().numpy() for p in f) for f in res.frames]
 
 
 def counted(run):
-    """``run()`` with every kernel's launch count set to 0 just before it;
-    returns (its result, the counts just after)."""
-    fused.launches = mc.launches = recon.launches = 0
+    """``run()`` with every kernel's launch count and the count of torch
+    sideband expansions set to 0 just before it; returns (its result, the
+    counts just after)."""
+    fused.launches = mc.launches = recon.launches = recon.expansions = 0
     out = run()
     return out, {"fused": fused.launches, "mc": mc.launches,
-                 "recon": recon.launches}
+                 "recon": recon.launches, "expansions": recon.expansions}
 
 
 def mismatching_pixels(a: list, b: list) -> int:
@@ -380,12 +484,12 @@ def mismatching_pixels(a: list, b: list) -> int:
 
 def check_path(label: str, run, device, n_planes: int) -> dict:
     """One path through ``impl="two_kernel"`` on the card (the MC and the
-    reconstruction kernel once per frame and plane each, the fused kernel
-    never), through ``impl="fused"`` on the card (the fused kernel once per
-    picture), and through
-    ``"two_kernel"`` on the CPU: all three bit-equal.  ``run(device,
-    impl)`` returns the decoded frames as numpy.  Returns the two-kernel
-    run's launch counts."""
+    reconstruction kernel once per picture each, the fused kernel never,
+    and no torch sideband expansion), through ``impl="fused"`` on the
+    card (the fused kernel once per picture), and through ``"two_kernel"``
+    on the CPU: all three bit-equal.  ``run(device, impl)`` returns the
+    decoded frames as numpy.  Returns the two-kernel run's launch
+    counts."""
     two, n_two = counted(lambda: run(device, "two_kernel"))
     n_f = len(two)
     fz, n_fz = counted(lambda: run(device, "fused"))
@@ -394,13 +498,13 @@ def check_path(label: str, run, device, n_planes: int) -> dict:
                                                                      cpu)
     emit("path", path=label, frames=n_f, planes=n_planes,
          two_kernel_launches=n_two, fused_launches=n_fz,
-         expected_launches={"two_kernel": n_f * n_planes, "fused": n_f},
+         expected_launches={"two_kernel": {"mc": n_f, "recon": n_f},
+                            "fused": n_f, "expansions": 0},
          vs_fused_on_card_mismatching_pixels=d_fused,
          vs_cpu_mismatching_pixels=d_cpu)
-    check(n_two == {"fused": 0, "mc": n_f * n_planes,
-                    "recon": n_f * n_planes} and n_f > 0,
-          f"{label}: launches {n_two} for {n_f} frames x {n_planes} planes")
-    check(n_fz == {"fused": n_f, "mc": 0, "recon": 0},
+    check(n_two == {"fused": 0, "mc": n_f, "recon": n_f, "expansions": 0}
+          and n_f > 0, f"{label}: launches {n_two} for {n_f} frames")
+    check(n_fz == {"fused": n_f, "mc": 0, "recon": 0, "expansions": 0},
           f"{label}: fused route launches {n_fz}")
     check(d_fused == 0, f"{label}: two-kernel and fused routes differ on "
                         f"the card in {d_fused} pixels")
@@ -476,7 +580,7 @@ def check_decoder(label: str, data: bytes, dev, n_planes: int,
              planes=n_planes, launches=n, expected_fused=n_f,
              vs_stream_decoder_mismatching_pixels=d_stream,
              vs_cpu_mismatching_pixels=d_cpu)
-        check(n == {"fused": n_f, "mc": 0, "recon": 0},
+        check(n == {"fused": n_f, "mc": 0, "recon": 0, "expansions": 0},
               f"{label} Decoder gop_batch={scan}: launches {n}")
         check(not d_stream and d_cpu == 0,
               f"{label} Decoder gop_batch={scan}: differs from the stream "
@@ -629,33 +733,6 @@ def device_ms(fn, device, k: int) -> tuple[list[float], float, float]:
         e1.synchronize()
         times.append(e0.elapsed_time(e1) / k)
     return times, covered / N_TIMED, statistics.median(host)
-
-
-def time_in_turns(name: str, kernel, plain, dev, card: str, plane: str,
-                  shape: list, moved: int) -> dict:
-    """A kernel's and its plain version's device time on the same inputs,
-    in turns (plain, kernel, kernel, plain), and per call with the host in
-    the loop; prints one ``kernel_time`` line."""
-    p1, pc1, ph1 = device_ms(plain, dev, 1)
-    k1, kc1, kh1 = device_ms(kernel, dev, 20)
-    k2, kc2, kh2 = device_ms(kernel, dev, 20)
-    p2, pc2, ph2 = device_ms(plain, dev, 1)
-    kcall, pcall = call_ms(kernel, dev), call_ms(plain, dev)
-    t = dict(ms=statistics.median(k1 + k2),
-             plain_ms=statistics.median(p1 + p2))
-    emit("kernel_time", kernel=name, card=card, plane=plane, shape=shape,
-         kernel_ms=t["ms"], plain_ms=t["plain_ms"],
-         kernel_ms_runs=[statistics.median(k1), statistics.median(k2)],
-         plain_ms_runs=[statistics.median(p1), statistics.median(p2)],
-         host_ahead_share={"kernel": min(kc1, kc2), "plain": min(pc1, pc2)},
-         host_enqueue_ms={"kernel_x20": max(kh1, kh2),
-                          "plain_x1": max(ph1, ph2)},
-         speedup=t["plain_ms"] / t["ms"],
-         kernel_call_ms=statistics.median(kcall),
-         plain_call_ms=statistics.median(pcall),
-         min_bytes=moved, achieved_gb_s=moved / (t["ms"] * 1e-3) / 1e9,
-         reps=2 * N_TIMED, l2="warm (inputs resident, 50 MB L2)")
-    return t
 
 
 def cold_ms(fn, device) -> list[float]:
@@ -819,6 +896,135 @@ def fused_picture_times(label: str, data: bytes, dev, card: str) -> list:
     return rows
 
 
+def two_kernel_work(frame: dict) -> dict:
+    """What one picture's MC and reconstruction launches must move, from
+    this picture's data.  MC: 2 B out per pixel, the reference bytes the
+    taps of predicted blocks read (their union) and 5 B per block (vector,
+    rep_add).  Reconstruction: 1 B out per pixel, 2 B of levels per pixel
+    of a coded block (lnz > 0 or intra), 2 B of prediction per pixel of a
+    P picture, 3 B per block (lnz, q, intra); 31 f32 operations per pixel
+    of a coded block."""
+    is_p = int(frame["is_p"]) != 0
+    out = dict(mc=0, recon=0, flop=0)
+    for ci, key in enumerate(frame_comp_keys(frame)):
+        c = frame[key]
+        h, w = c["levels"].shape
+        px, blocks = h * w, (h // 8) * (w // 8)
+        coded = int(((c["lnz"] > 0) | (c["intra"] > 0)).sum()) * 64
+        pred = 2 * px if is_p else 0
+        out["mc"] += (2 * px + tap_footprint(c, h, w, comp_is_chroma(ci))
+                      + 5 * blocks)
+        out["recon"] += px + 2 * coded + pred + 3 * blocks
+        out["flop"] += FLOP_PER_CODED_PIXEL * coded
+    return out
+
+
+def turns(fns: dict, order: list, dev) -> dict:
+    """Each function's device time, warm in L2 (20 calls back to back
+    behind a spin) and cold (a 64 MB write before each call), in the
+    ``order`` given (a function named twice runs twice, apart); returns
+    per name the median of all its runs and the median of each run."""
+    runs = {}
+    for name in order:
+        warm = device_ms(fns[name], dev, 20)[0]
+        runs.setdefault(name, []).append((warm, cold_ms(fns[name], dev)))
+    return {name: dict(
+        ms=statistics.median([t for w, _ in r for t in w]),
+        cold_ms=statistics.median([t for _, c in r for t in c]),
+        ms_runs=[statistics.median(w) for w, _ in r],
+        cold_ms_runs=[statistics.median(c) for _, c in r])
+        for name, r in runs.items()}
+
+
+def two_kernel_picture_times(label: str, data: bytes, dev,
+                             card: str) -> list:
+    """The MC and reconstruction kernels per picture of GOP 0 of
+    ``data``: warm and cold, in turns with their first designs (three
+    launches per picture each), first design, new, new, first design
+    (the reconstruction's first design on the expanded sideband); the
+    torch sideband expansion the first designs' route ran per picture;
+    the plain versions; the bytes and operations and the bounds.  Two
+    ``kernel_time`` lines per picture."""
+    meta, seq, _, _, _, dense = gop_on_card(data, 0, dev)
+    consts = make_constants(seq, dev)
+    refs = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
+                     dev)
+    rows = []
+    for i in range(int(dense["is_p"].shape[0])):
+        frame = frame_at(dense, i)
+        keys, is_p = frame_comp_keys(frame), frame["is_p"]
+        preds = tuple(torch.empty(r.shape, dtype=torch.int16, device=dev)
+                      for r in refs)
+        outs = tuple(torch.empty_like(r) for r in refs)
+        mc.predict_picture_mc(frame, refs, outs=preds)
+        planes = [(ci, frame[k], recon.expand_sideband(frame[k], consts),
+                   comp_is_chroma(ci)) for ci, k in enumerate(keys)]
+        fns = {
+            "mc": lambda: mc.predict_picture_mc(frame, refs, outs=preds),
+            "mc_first": lambda: [mc_first_design(
+                refs[ci], c["mv"], c["rep_add"], ch, out=preds[ci])
+                for ci, c, _, ch in planes],
+            "mc_plain": lambda: [predict_plane(
+                refs[ci], c["mv"], c["rep_add"], ch).to(torch.int16)
+                for ci, c, _, ch in planes],
+            "recon": lambda: recon.recon_picture(frame, preds, is_p, consts,
+                                                 outs=outs),
+            "recon_first": lambda: [recon_first_design(
+                c["levels"], *sb, preds[ci], is_p, consts, out=outs[ci])
+                for ci, c, sb, _ in planes],
+            "expand": lambda: [recon.expand_sideband(c, consts)
+                               for _, c, _, _ in planes],
+            "recon_plain": lambda: [recon.recon_plane_blocks(
+                c, preds[ci], is_p, consts) for ci, c, _, _ in planes],
+        }
+        t = turns(fns, ["mc_first", "mc", "mc", "mc_first", "recon_first",
+                        "recon", "recon", "recon_first"], dev)
+        plain = {name: statistics.median(device_ms(fns[name], dev, 1)[0])
+                 for name in ("mc_plain", "recon_plain")}
+        expand_ms = statistics.median(device_ms(fns["expand"], dev, 4)[0])
+        work = two_kernel_work(frame)
+        b = {k: bound(work[k], work["flop"] if k != "mc" else 0)
+             for k in ("mc", "recon")}
+        common = dict(stream=label, card=card, frame=i, is_p=int(is_p),
+                      shapes=[list(r.shape) for r in refs],
+                      launches_per_picture=1,
+                      first_design_launches_per_picture=len(keys),
+                      library_ms=None, library=NO_LIBRARY, reps=2 * N_TIMED,
+                      l2="warm: back to back behind a spin; cold: a 64 MB "
+                         "write before each call")
+
+        def timed(name, first, work_bytes, bnd):
+            return dict(
+                kernel_ms=t[name]["ms"], kernel_cold_ms=t[name]["cold_ms"],
+                kernel_ms_runs=t[name]["ms_runs"],
+                kernel_cold_ms_runs=t[name]["cold_ms_runs"],
+                first_design_ms=t[first]["ms"],
+                first_design_cold_ms=t[first]["cold_ms"],
+                speedup_vs_first_design=t[first]["ms"] / t[name]["ms"],
+                bytes=work_bytes, bound_ms=bnd[0], bound_by=bnd[1],
+                bound_share=bnd[0] / t[name]["ms"],
+                bound_share_cold=bnd[0] / t[name]["cold_ms"],
+                achieved_gb_s=work_bytes / (t[name]["ms"] * 1e-3) / 1e9)
+
+        mc_row = timed("mc", "mc_first", work["mc"], b["mc"])
+        emit("kernel_time", kernel="mc_picture", **common, **mc_row,
+             first_design_ms_runs=t["mc_first"]["ms_runs"],
+             plain_ms=plain["mc_plain"])
+        recon_row = timed("recon", "recon_first", work["recon"], b["recon"])
+        emit("kernel_time", kernel="recon_picture", **common, **recon_row,
+             first_design_ms_runs=t["recon_first"]["ms_runs"],
+             plain_ms=plain["recon_plain"], flop=work["flop"],
+             torch_sideband_expansion_ms=expand_ms,
+             first_design_route_ms=t["recon_first"]["ms"] + expand_ms)
+        rows.append(dict(is_p=int(is_p),
+                         mc=dict(mc_row, plain_ms=plain["mc_plain"]),
+                         recon=dict(recon_row,
+                                    plain_ms=plain["recon_plain"])))
+        refs = fused.decode_frame_planes_fused(frame, refs, consts)
+    sync(dev)
+    return rows
+
+
 def decoder_rate(data: bytes, dev, scan: bool, card: str) -> dict:
     """The streaming Decoder's frames/s over a whole buffered stream
     (host clock, a run ends in a synchronise; median of N_E2E after a
@@ -948,6 +1154,75 @@ def colour_time(data: bytes, dev, card: str) -> dict:
     return out
 
 
+def two_kernel_gop_times(wire, spec, n_f: int, seq, meta, consts, dev,
+                         card: str, fused_dev_ms: float,
+                         fused_gop_ms: float) -> dict:
+    """The two-kernel GOP decode of a resident wire against the same route
+    with its first designs (per plane: torch sideband expansion,
+    first-design MC, first-design reconstruction), in turns: first
+    designs, new, new, first designs; device busy time and per call with
+    the host in the loop, for the ``n_f`` frames of the GOP.  Needs
+    :func:`first_design_route`."""
+
+    def gop_two(impl):
+        zr = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
+                       dev)
+        return decode_gop_wire(wire, spec, zr, consts, seq.mb_height,
+                               seq.mb_width, impl=impl)
+
+    routes = {}
+    for impl in ("two_kernel_first_design", "two_kernel", "two_kernel",
+                 "two_kernel_first_design"):
+        d, cov, _ = device_ms(lambda: gop_two(impl), dev, 2)
+        c = call_ms(lambda: gop_two(impl), dev)
+        prev = routes.setdefault(impl, dict(dev=[], call=[], cov=1.0))
+        prev["dev"] += d
+        prev["call"] += c
+        prev["cov"] = min(prev["cov"], cov)
+    routes = {impl: dict(device_busy_ms=statistics.median(v["dev"]),
+                         gop_ms=statistics.median(v["call"]),
+                         host_ahead_share=v["cov"])
+              for impl, v in routes.items()}
+    for v in routes.values():
+        v["frames_per_s"] = n_f / (v["gop_ms"] * 1e-3)
+        v["device_idle_share"] = 1 - v["device_busy_ms"] / v["gop_ms"]
+    emit("device_gop_decode_two_kernel", card=card, frames=n_f,
+         **routes["two_kernel"],
+         first_designs=routes["two_kernel_first_design"],
+         fused_frames_per_s=n_f / (fused_gop_ms * 1e-3),
+         fused_device_busy_ms=fused_dev_ms,
+         reps=2 * N_TIMED, what="unflatten + expand + GOP loop (MC, "
+                                "reconstruction), resident wire; the first "
+                                "designs' route also expands the sideband "
+                                "per plane")
+    return routes
+
+
+def stream_decoder_times(data: bytes, dev, card: str) -> None:
+    """``StreamDecoder`` end to end (host clock, median of N_E2E after a
+    warm-up) and its stages, through the two-kernel route with its first
+    designs, the two-kernel route and the fused route.  Needs
+    :func:`first_design_route`."""
+    for impl in ("two_kernel_first_design", "two_kernel", "fused"):
+        m, wall = Metrics(), []
+        for rep in range(N_E2E + 1):
+            mm = Metrics() if rep == 0 else m  # rep 0 is the warm-up
+            sync(dev)
+            t0 = time.perf_counter()
+            r = StreamDecoder(data, device=dev).decode(impl=impl, metrics=mm)
+            sync(dev)
+            if rep:
+                wall.append(time.perf_counter() - t0)
+        n_fr = len(r.frames)
+        emit("stream_decoder_end_to_end", card=card, impl=impl, frames=n_fr,
+             median_s=statistics.median(wall),
+             frames_per_s=n_fr / statistics.median(wall), reps=N_E2E,
+             stage_s_per_run={k: v / N_E2E
+                              for k, v in m.timers.totals.items()},
+             what="parse_all + pack + one copy per GOP + GOP decode; "
+                  "frames stay on the card")
+
+
 def smoke(dev: torch.device) -> None:
     t_start = time.perf_counter()
 
@@ -962,10 +1237,15 @@ def smoke(dev: torch.device) -> None:
          python=sys.version.split()[0])
 
     # ---- 2. build -----------------------------------------------------------
-    built = build.load()
-    emit("build", library=built.path, nvcc_seconds=built.seconds,
-         ptxas=[ln.strip() for ln in built.log.splitlines()
-                if "Used" in ln or "spill" in ln])
+    # both libraries at once: each starts one nvcc per source
+    with ThreadPoolExecutor(len(build.LIBRARIES)) as pool:
+        libs = dict(zip(build.LIBRARIES, pool.map(build.load,
+                                                  build.LIBRARIES)))
+    for name, built in libs.items():
+        emit("build", library=name, path=built.path,
+             nvcc_seconds=built.seconds,
+             ptxas=[ln.strip() for ln in built.log.splitlines()
+                    if "Used" in ln or "spill" in ln])
 
     # ---- 3. kernel vs plain -------------------------------------------------
     t0 = time.perf_counter()
@@ -1046,45 +1326,11 @@ def smoke(dev: torch.device) -> None:
     pictures = fused_picture_times("1080p", data_1080, dev, card)
     fused_t = pictures[1]                  # the first P picture
     check(fused_t["is_p"] == 1, "frame 1 of GOP 0 is not a P frame")
+    two = two_kernel_picture_times("1080p", data_1080, dev, card)
+    two_t = two[1]                         # the first P picture
+    check(two_t["is_p"] == 1, "frame 1 of GOP 0 is not a P frame")
     meta, seq, g, wire, spec, dense = gop_on_card(data_1080, 0, dev)
     consts = make_constants(seq, dev)
-    refs = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
-                     dev)
-    f0 = frame_at(dense, 0)
-    refs = fused.decode_frame_planes_fused(f0, refs, consts)
-    f1 = frame_at(dense, 1)                 # a P frame
-    timing = {"mc": {}, "recon": {}}
-    for ci, key in ((0, "y"), (1, "cb")):
-        chroma, c, is_p = comp_is_chroma(ci), f1[key], f1["is_p"]
-        shape = list(refs[ci].shape)
-        px = shape[0] * shape[1]
-        mult, flags = recon.expand_sideband(c, consts)
-        pred = mc.predict_plane_mc(refs[ci], c["mv"], c["rep_add"], chroma)
-        cases = {
-            # out 2 B per pixel, the reference bytes the taps read, vector
-            # and rep_add 5 B per block; integer work only
-            "mc": (lambda: mc.predict_plane_mc(refs[ci], c["mv"],
-                                               c["rep_add"], chroma),
-                   lambda: predict_plane(refs[ci], c["mv"], c["rep_add"],
-                                         chroma).to(torch.int16),
-                   px * 2 + tap_footprint(c, *shape, chroma)
-                   + (px // 64) * 5, 0),
-            # levels 2, mult 2, flags 1, pred 2, out 1; the IDCT and add
-            "recon": (lambda: recon.fused_recon_plane(
-                c["levels"], mult, flags, pred, is_p, consts),
-                lambda: recon.recon_plane(c["levels"], mult, flags, pred,
-                                          is_p, consts),
-                px * 8, FLOP_PER_CODED_PIXEL * px),
-        }
-        for name, (kernel, plain, moved, flop) in cases.items():
-            t = time_in_turns(name, kernel, plain, dev, card, key, shape,
-                              moved)
-            t["bound_ms"], t["bound_by"] = bound(moved, flop)
-            emit("kernel_bound", kernel=name, plane=key, card=card,
-                 bytes=moved, flop=flop, bound_ms=t["bound_ms"],
-                 bound_by=t["bound_by"], bound_share=t["bound_ms"] / t["ms"],
-                 library_ms=None, library=NO_LIBRARY)
-            timing[name][key] = t
 
     n_f = len(g.hdrs)
 
@@ -1111,26 +1357,6 @@ def smoke(dev: torch.device) -> None:
          / statistics.median(gop_call),
          reps=N_TIMED, what="unflatten + expand + GOP loop, resident wire")
 
-    def gop_two():
-        zr = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
-                       dev)
-        return decode_gop_wire(wire, spec, zr, consts, seq.mb_height,
-                               seq.mb_width, impl="two_kernel")
-
-    two_dev, two_cov, _ = device_ms(gop_two, dev, 2)
-    two_call = call_ms(gop_two, dev)
-    emit("device_gop_decode_two_kernel", card=card, frames=n_f,
-         gop_ms=statistics.median(two_call),
-         frames_per_s=n_f / (statistics.median(two_call) * 1e-3),
-         fused_frames_per_s=n_f / (statistics.median(gop_call) * 1e-3),
-         device_busy_ms=statistics.median(two_dev),
-         fused_device_busy_ms=statistics.median(gop_dev),
-         host_ahead_share=two_cov,
-         device_idle_share=1 - statistics.median(two_dev)
-         / statistics.median(two_call),
-         reps=N_TIMED, what="unflatten + expand + GOP loop (sideband "
-                             "expansion, MC, reconstruction), resident wire")
-
     m = Metrics()
     wall = []
     for rep in range(N_TIMED + 1):
@@ -1152,25 +1378,11 @@ def smoke(dev: torch.device) -> None:
          reps=N_TIMED, stage_s_per_gop=stages,
          wire_bytes_per_run=m.gauges["wire_bytes"])
 
-    for impl in ("two_kernel", "fused"):
-        m, wall = Metrics(), []
-        for rep in range(N_E2E + 1):
-            mm = Metrics() if rep == 0 else m  # rep 0 is the warm-up
-            sync(dev)
-            t0 = time.perf_counter()
-            r = StreamDecoder(data_1080, device=dev).decode(impl=impl,
-                                                            metrics=mm)
-            sync(dev)
-            if rep:
-                wall.append(time.perf_counter() - t0)
-        n_fr = len(r.frames)
-        emit("stream_decoder_end_to_end", card=card, impl=impl, frames=n_fr,
-             median_s=statistics.median(wall),
-             frames_per_s=n_fr / statistics.median(wall), reps=N_E2E,
-             stage_s_per_run={k: v / N_E2E
-                              for k, v in m.timers.totals.items()},
-             what="parse_all + pack + one copy per GOP + GOP decode; "
-                  "frames stay on the card")
+    with first_design_route():
+        two_kernel_gop_times(wire, spec, n_f, seq, meta, consts, dev, card,
+                             statistics.median(gop_dev),
+                             statistics.median(gop_call))
+        stream_decoder_times(data_1080, dev, card)
 
     for scan in (True, False):
         decoder_rate(data_1080, dev, scan, card)
@@ -1189,20 +1401,19 @@ def smoke(dev: torch.device) -> None:
          "ms": fused_t["ms"], "plain_ms": fused_t["plain_ms"],
          "bound_ms": fused_t["bound_ms"], "bound_by": fused_t["bound_by"],
          "library_ms": None},
-        {"name": "predict_plane_mc", "route": "cuda",
+        {"name": "predict_picture_mc", "route": "cuda",
          "source": MC_SOURCE, "replaces": MC_REPLACES,
          "launches": n_two["mc"], "max_abs_err": worst["mc"],
-         "ms": timing["mc"]["y"]["ms"],
-         "plain_ms": timing["mc"]["y"]["plain_ms"],
-         "bound_ms": timing["mc"]["y"]["bound_ms"],
-         "bound_by": timing["mc"]["y"]["bound_by"], "library_ms": None},
-        {"name": "fused_recon_plane", "route": "cuda",
+         "ms": two_t["mc"]["kernel_ms"], "plain_ms": two_t["mc"]["plain_ms"],
+         "bound_ms": two_t["mc"]["bound_ms"],
+         "bound_by": two_t["mc"]["bound_by"], "library_ms": None},
+        {"name": "recon_picture", "route": "cuda",
          "source": RECON_SOURCE, "replaces": RECON_REPLACES,
          "launches": n_two["recon"], "max_abs_err": worst["recon"],
-         "ms": timing["recon"]["y"]["ms"],
-         "plain_ms": timing["recon"]["y"]["plain_ms"],
-         "bound_ms": timing["recon"]["y"]["bound_ms"],
-         "bound_by": timing["recon"]["y"]["bound_by"],
+         "ms": two_t["recon"]["kernel_ms"],
+         "plain_ms": two_t["recon"]["plain_ms"],
+         "bound_ms": two_t["recon"]["bound_ms"],
+         "bound_by": two_t["recon"]["bound_by"],
          "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,10 +4,11 @@
 // fused_decode.cu, recon.cu and mc.cu all include it, so the three kernels
 // cannot drift apart; the plain PyTorch versions
 // (jsvx_torch/kernels/decode.py) compute the same steps in the same order.
-// Two forms of each step: one thread per pixel over a strip of blocks in
-// shared memory (idct_strip, halfpel_predict: recon.cu, mc.cu), and one
-// thread per 8-pixel row of a block in registers (idct8, halfpel_row8,
-// round_pack4: fused_decode.cu).
+// Two forms of each step: one thread per 8-pixel row of a block in
+// registers (dequant_block_row, idct_block_row, idct8, halfpel_row8,
+// round_pack4: fused_decode.cu, recon.cu, mc.cu), and one thread per pixel
+// over a strip of blocks in shared memory (idct_strip, halfpel_predict:
+// the first designs, *_baseline.cu).
 //
 // Exactness: each 1-D IDCT output is c[x,0]*f[0] + c[x,1]*f[1] + ... +
 // c[x,7]*f[7], summed left to right with __fmul_rn/__fadd_rn, so it is
@@ -103,6 +104,71 @@ __device__ __forceinline__ int halfpel_predict(const uint8_t* __restrict__ ref,
 // ---------------------------------------------------------------------------
 // One thread per 8-pixel row of a block, everything in registers.
 
+// The IDCT basis, the quant matrices and the scan order of a picture,
+// passed with a launch (no table prologue, no barrier).
+struct BlockTables {
+    float c[64];                           // IDCT basis: spatial = C F C^T
+    alignas(16) int qm[2][64];             // intra, non-intra matrix
+    alignas(8) uint8_t scan[64];           // scan position of each position
+};
+
+// Host: the tables from qtab (192 ints: intra matrix, non-intra matrix,
+// scan position of each spatial position) and the basis (64 floats,
+// row-major).
+inline void set_block_tables(BlockTables& t, const int* qtab,
+                             const float* c_basis) {
+    for (int i = 0; i < 64; ++i) {
+        t.c[i] = c_basis[i];
+        t.qm[0][i] = qtab[i];
+        t.qm[1][i] = qtab[64 + i];
+        t.scan[i] = (uint8_t)qtab[128 + i];
+    }
+}
+
+// One row's eight levels (int16 pairs in lv4) -> dequantised f32 values
+// (decode.py::dequant_plane).  m holds the row's quant-matrix entries,
+// sc the scan positions as bytes; kMask = false skips the scan mask, for a
+// warp whose live blocks all have lnz == 64 (the compact wire's).
+template <bool kQuirk, bool kMask>
+__device__ __forceinline__ void dequant_row(uint4 lv4, const int (&m)[8],
+                                            uint2 sc, int q, int lnz,
+                                            bool intra, int r, float (&f)[8]) {
+    const uint32_t lvw[4] = {lv4.x, lv4.y, lv4.z, lv4.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const int lv = (int16_t)(lvw[j >> 1] >> (16 * (j & 1)));
+        int d = dequant_coef(lv, q * m[j], !intra, kQuirk);
+        if (kMask) {
+            const int scan = ((j < 4 ? sc.x : sc.y) >> (8 * (j & 3))) & 0xFF;
+            if (scan >= lnz) d = 0;                  // outside the scan
+        }
+        if (j == 0 && r == 0 && intra) d = 8 * lv;   // intra DC
+        f[j] = __int2float_rn(d);
+    }
+}
+
+// Row r of a block from its per-block sideband (q, lnz, intra): the row's
+// quant-matrix entries from the launch's tables, then dequant_row, without
+// the scan mask where every live block of the warp has lnz >= 64.  Every
+// lane of the warp must call it.
+template <bool kQuirk>
+__device__ __forceinline__ void dequant_block_row(const BlockTables& t,
+                                                  uint4 lv4, int q, int lnz,
+                                                  bool intra, bool live,
+                                                  int r, float (&f)[8]) {
+    const int4* mrow =
+        reinterpret_cast<const int4*>(&t.qm[intra ? 0 : 1][8 * r]);
+    const int4 m0 = mrow[0], m1 = mrow[1];
+    const int m[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+    if (__all_sync(0xFFFFFFFFu, !live || lnz >= 64)) {
+        dequant_row<kQuirk, false>(lv4, m, make_uint2(0, 0), q, lnz, intra,
+                                   r, f);
+    } else {
+        const uint2 sc = *reinterpret_cast<const uint2*>(&t.scan[8 * r]);
+        dequant_row<kQuirk, true>(lv4, m, sc, q, lnz, intra, r, f);
+    }
+}
+
 // Four sums s[0..3] of (float)prediction + residual -> four bytes
 // min(max(rintf(s), 0), 255), byte 0 first: one round-to-nearest-even
 // conversion per value (as rintf rounds; the sums are far inside int
@@ -138,6 +204,38 @@ __device__ __forceinline__ void idct8(const float* c, const float (&in)[8],
         }
         out[x] = acc;
     }
+}
+
+constexpr int kTileRow = 12;               // floats per tile row: 8 + pad
+constexpr int kTile = 8 * kTileRow + 8;    // floats per block tile
+
+// The 8x8 IDCT of a block, one thread per row: lane r holds row r of the
+// dequantised block F in f and gets back row r of C F C^T in res.  The
+// block goes through its shared-memory tile t (kTile floats; the pads make
+// both transposes conflict-free) once each way: the column pass runs with
+// a thread per column, the row pass with a thread per row, both through
+// idct8 in registers.  Every lane of the warp must call it (it holds
+// __syncwarp barriers).
+__device__ __forceinline__ void idct_block_row(const float* c,
+                                               const float (&f)[8], float* t,
+                                               int r, float (&res)[8]) {
+    *reinterpret_cast<float4*>(t + r * kTileRow) =
+        make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(t + r * kTileRow + 4) =
+        make_float4(f[4], f[5], f[6], f[7]);
+    __syncwarp();
+    float col[8], g[8];                    // column r of F, of C F
+#pragma unroll
+    for (int u = 0; u < 8; ++u) col[u] = t[u * kTileRow + r];
+    idct8(c, col, g);
+    __syncwarp();
+#pragma unroll
+    for (int x = 0; x < 8; ++x) t[x * kTileRow + r] = g[x];
+    __syncwarp();
+    const float4 g0 = *reinterpret_cast<const float4*>(t + r * kTileRow);
+    const float4 g1 = *reinterpret_cast<const float4*>(t + r * kTileRow + 4);
+    const float row[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    idct8(c, row, res);                                 // row r of C F C^T
 }
 
 // The nine bytes row[x0 .. x0+8] of one reference row of width w, each

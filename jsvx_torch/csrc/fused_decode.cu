@@ -42,12 +42,13 @@
 // Tensor cores are ruled out: they round to TF32 and sum in their own
 // order.
 
-// Layout: a warp covers four 8x8 blocks side by side in one block row,
-// lane = 8 * block + row (row of the block in the dequantisation and row
-// passes, column in the column pass); a CTA is four warps over four
-// consecutive warp tasks of its plane, numbered along block rows.
+// Layout (picture_layout.cuh, shared with mc.cu and recon.cu): a warp
+// covers four 8x8 blocks side by side in one block row, lane = 8 * block +
+// row (row of the block in the dequantisation and row passes, column in
+// the column pass); a CTA is four warps over four consecutive warp tasks
+// of its plane, numbered along block rows.
 //
-// Exactness: dequant_coef and the IDCT order come from block_math.cuh,
+// Exactness: the row dequantisation and the IDCT come from block_math.cuh,
 // shared with recon.cu and mc.cu; each 1-D pass is the explicit sum
 // c[x,0]*f[0] + ... + c[x,7]*f[7], left to right, never contracted into a
 // fused multiply-add.
@@ -56,15 +57,15 @@
 #include <stdint.h>
 
 #include "block_math.cuh"
+#include "picture_layout.cuh"
 
 namespace {
 
-constexpr int kMaxPlanes = 4;
-constexpr int kWarps = 4;                  // warps per CTA
-constexpr int kBlocksPerWarp = 4;          // 8x8 blocks side by side
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRow = 12;                   // floats per tile row: 8 + pad
-constexpr int kTile = 8 * kRow + 8;        // floats per block tile
+using jsvx::kMaxPlanes;
+using jsvx::kThreads;
+using jsvx::kWarps;
+using jsvx::kBlocksPerWarp;
+using jsvx::kTile;
 
 struct PlaneArgs {
     const int16_t* levels;                 // (h, w)
@@ -75,67 +76,29 @@ struct PlaneArgs {
     const uint8_t* rep_add;                // (h/8, w/8)
     const uint8_t* ref;                    // (h, w)
     uint8_t* out;                          // (h, w)
-    int h, w, is_chroma, cta_begin, groups;
-    float inv_groups;
+    jsvx::PlaneLayout L;
 };
 
 struct PictureArgs {
     PlaneArgs plane[kMaxPlanes];
     const int32_t* is_p;                   // one int32 on the card
-    float c[64];                           // IDCT basis: spatial = C F C^T
-    alignas(16) int qm[2][64];             // intra, non-intra matrix
-    alignas(8) uint8_t scan[64];           // scan position of each position
+    jsvx::BlockTables t;
     int n_planes;
 };
-
-// One row's eight levels (int16 pairs in lv4) -> dequantised f32 values
-// (decode.py::dequant_plane).  m holds the row's quant-matrix entries,
-// sc the scan positions as bytes; kMask = false skips the scan mask, for a
-// warp whose live blocks all have lnz == 64 (the compact wire's).
-template <bool kQuirk, bool kMask>
-__device__ __forceinline__ void dequant_row(uint4 lv4, const int (&m)[8],
-                                            uint2 sc, int q, int lnz,
-                                            bool intra, int r, float (&f)[8]) {
-    const uint32_t lvw[4] = {lv4.x, lv4.y, lv4.z, lv4.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const int lv = (int16_t)(lvw[j >> 1] >> (16 * (j & 1)));
-        int d = jsvx::dequant_coef(lv, q * m[j], !intra, kQuirk);
-        if (kMask) {
-            const int scan = ((j < 4 ? sc.x : sc.y) >> (8 * (j & 3))) & 0xFF;
-            if (scan >= lnz) d = 0;                  // outside the scan
-        }
-        if (j == 0 && r == 0 && intra) d = 8 * lv;   // intra DC
-        f[j] = __int2float_rn(d);
-    }
-}
 
 template <bool kQuirk>
 __global__ void __launch_bounds__(kThreads)
 fused_decode_picture_kernel(const __grid_constant__ PictureArgs a) {
     __shared__ __align__(16) float s_t[kWarps][kBlocksPerWarp * kTile];
 
-    int p = 0;                             // the CTA's plane
-#pragma unroll
-    for (int i = 1; i < kMaxPlanes; ++i) {
-        if (i < a.n_planes && (int)blockIdx.x >= a.plane[i].cta_begin) p = i;
-    }
-    const PlaneArgs& P = a.plane[p];
-    const int h = P.h, w = P.w, wb = w >> 3;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int b = lane >> 3, r = lane & 7;
-    // warp task -> block row: task / groups by the reciprocal, corrected
-    // by one step (exact: task < 2^22)
-    const int groups = P.groups;
-    const int task = ((int)blockIdx.x - P.cta_begin) * kWarps + warp;
-    int by = __float2int_rz(__int2float_rn(task) * P.inv_groups);
-    const int rem = task - by * groups;
-    by += (rem >= groups) - (rem < 0);
-    const int bx = (task - by * groups) * kBlocksPerWarp + b;
-    if (by >= (h >> 3)) return;            // the whole warp: past the plane
-    const bool live = bx < wb;             // the row's blocks end mid-warp
-    const int blk = by * wb + bx;
-    const int y = by * 8 + r;
+    const PlaneArgs& P = a.plane[jsvx::cta_plane(a.plane, a.n_planes)];
+    jsvx::RowTask k;
+    if (!jsvx::row_task(P.L, k)) return;   // the whole warp: past the plane
+    const int h = P.L.h, w = P.L.w;
+    const int r = k.r, bx = k.bx;
+    const bool live = k.live;              // the row's blocks end mid-warp
+    const int blk = k.by * (w >> 3) + bx;
+    const int y = k.by * 8 + r;
     const size_t pix = (size_t)y * w + (size_t)bx * 8;
 
     // ---- the block's sideband, once per thread ----
@@ -160,7 +123,7 @@ fused_decode_picture_kernel(const __grid_constant__ PictureArgs a) {
     // ---- half-pel prediction of the row (decode.py::predict_plane) ----
     uint32_t p0 = 0, p1 = 0;
     if (live && !rep && is_p) {
-        if (P.is_chroma) {                 // truncation toward zero
+        if (P.L.is_chroma) {               // truncation toward zero
             mvy /= 2;
             mvx /= 2;
         }
@@ -179,40 +142,11 @@ fused_decode_picture_kernel(const __grid_constant__ PictureArgs a) {
 
     // ---- dequantise the row (decode.py::dequant_plane) ----
     float f[8];
-    {
-        const int4* mrow =
-            reinterpret_cast<const int4*>(&a.qm[intra ? 0 : 1][8 * r]);
-        const int4 m0 = mrow[0], m1 = mrow[1];
-        const int m[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
-        if (__all_sync(0xFFFFFFFFu, !live || lnz >= 64)) {
-            dequant_row<kQuirk, false>(lv4, m, make_uint2(0, 0), q, lnz,
-                                       intra, r, f);
-        } else {
-            const uint2 sc = *reinterpret_cast<const uint2*>(&a.scan[8 * r]);
-            dequant_row<kQuirk, true>(lv4, m, sc, q, lnz, intra, r, f);
-        }
-    }
+    jsvx::dequant_block_row<kQuirk>(a.t, lv4, q, lnz, intra, live, r, f);
 
     // ---- IDCT: transpose, column pass, transpose back, row pass ----
-    float* t = &s_t[warp][b * kTile];
-    *reinterpret_cast<float4*>(t + r * kRow) =
-        make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(t + r * kRow + 4) =
-        make_float4(f[4], f[5], f[6], f[7]);
-    __syncwarp();
-    float col[8], g[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) col[u] = t[u * kRow + r];   // column r of F
-    jsvx::idct8(a.c, col, g);                               // column r of C F
-    __syncwarp();
-#pragma unroll
-    for (int x = 0; x < 8; ++x) t[x * kRow + r] = g[x];
-    __syncwarp();
-    const float4 g0 = *reinterpret_cast<const float4*>(t + r * kRow);
-    const float4 g1 = *reinterpret_cast<const float4*>(t + r * kRow + 4);
-    const float row[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
     float res[8];
-    jsvx::idct8(a.c, row, res);                             // row r of C F C^T
+    jsvx::idct_block_row(a.t.c, f, &s_t[k.warp][k.b * kTile], r, res);
 
     // ---- add, round, clamp, one 8-byte store ----
     if (!live) return;
@@ -225,12 +159,6 @@ fused_decode_picture_kernel(const __grid_constant__ PictureArgs a) {
     *reinterpret_cast<uint2*>(P.out + pix) = make_uint2(
         jsvx::round_pack4(s[0], s[1], s[2], s[3]),
         jsvx::round_pack4(s[4], s[5], s[6], s[7]));
-}
-
-// CTAs of one (h, w) plane: one warp task per four blocks of a block row.
-int plane_ctas(int h, int w) {
-    const int groups = ((w >> 3) + kBlocksPerWarp - 1) / kBlocksPerWarp;
-    return ((h >> 3) * groups + kWarps - 1) / kWarps;
 }
 
 }  // namespace
@@ -255,15 +183,13 @@ extern "C" int jsvx_fused_decode_picture(
     PictureArgs a = {};
     int begin = 0;
     for (int p = 0; p < n_planes; ++p) {
-        const int* d = dims + 4 * p;
         const void* const* q = ptrs + 8 * p;
-        const int h = d[0], w = d[1];
-        if (h <= 0 || w <= 0 || (h & 7) || (w & 7) || d[3] != begin
+        PlaneArgs& P = a.plane[p];
+        if (!jsvx::set_plane_layout(P.L, dims + 4 * p, begin)
                 || ((uintptr_t)q[0] & 15) || ((uintptr_t)q[4] & 3)
                 || ((uintptr_t)q[6] & 7) || ((uintptr_t)q[7] & 7)) {
             return (int)cudaErrorInvalidValue;
         }
-        PlaneArgs& P = a.plane[p];
         P.levels = (const int16_t*)q[0];
         P.lnz = (const uint8_t*)q[1];
         P.qscale = (const uint8_t*)q[2];
@@ -272,23 +198,11 @@ extern "C" int jsvx_fused_decode_picture(
         P.rep_add = (const uint8_t*)q[5];
         P.ref = (const uint8_t*)q[6];
         P.out = (uint8_t*)q[7];
-        P.h = h;
-        P.w = w;
-        P.is_chroma = d[2];
-        P.cta_begin = begin;
-        P.groups = ((w >> 3) + kBlocksPerWarp - 1) / kBlocksPerWarp;
-        P.inv_groups = 1.0f / (float)P.groups;
-        begin += plane_ctas(h, w);
     }
     if (begin != ctas) return (int)cudaErrorInvalidValue;
     a.n_planes = n_planes;
     a.is_p = (const int32_t*)is_p;
-    for (int i = 0; i < 64; ++i) {
-        a.c[i] = c_basis[i];
-        a.qm[0][i] = qtab[i];
-        a.qm[1][i] = qtab[64 + i];
-        a.scan[i] = (uint8_t)qtab[128 + i];
-    }
+    jsvx::set_block_tables(a.t, qtab, c_basis);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (quirk) {

@@ -1,12 +1,15 @@
 """Build the port's CUDA kernels on first use and bind them with ctypes.
 
-``nvcc`` compiles each ``jsvx_torch/csrc/*.cu`` for Hopper (``sm_90a``),
-all at once in parallel processes, and links them into one shared library
-with a plain C interface, under ``build/jsvx_torch/<key>/`` at the root of
-the checkout (``build/`` is git-ignored).  The key is a hash of every
-source and header in ``csrc/`` and of the command, so an edited file
-builds anew and an unchanged tree is loaded from disk.  Nothing is built
-at import time.
+``nvcc`` compiles each source of a library in ``jsvx_torch/csrc/`` for
+Hopper (``sm_90a``), all at once in parallel processes, and links them
+into one shared library with a plain C interface, under
+``build/jsvx_torch/<key>/`` at the root of the checkout (``build/`` is
+git-ignored).  There are two libraries: ``"kernels"``, the three kernels
+the decode runs, and ``"baselines"``, their first designs, which only
+``chip_smoke.py`` loads (to time them in turns with the kernels).  The
+key is a hash of the library's sources, of every header in ``csrc/`` and
+of the command, so an edited file builds anew and an unchanged tree is
+loaded from disk.  Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -22,14 +25,35 @@ from dataclasses import dataclass
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-#: ``fused_decode_baseline.cu`` is the fused kernel's first design, which
-#: only ``chip_smoke.py`` launches (its baseline in turns)
-SOURCES = ("fused_decode.cu", "recon.cu", "mc.cu", "fused_decode_baseline.cu")
+#: the sources of each library: the kernels the decode runs, and their
+#: first designs (``*_baseline.cu``), which only ``chip_smoke.py`` launches
+LIBRARIES = {
+    "kernels": ("fused_decode.cu", "recon.cu", "mc.cu"),
+    "baselines": ("fused_decode_baseline.cu", "recon_baseline.cu",
+                  "mc_baseline.cu"),
+}
+SOURCES = LIBRARIES["kernels"]
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "jsvx_torch")
-LIB_NAME = "libjsvx_torch_kernels.so"
 
-_lock = threading.Lock()
-_built: "BuiltLibrary | None" = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: the argument types of the picture kernels' entry points (fused, recon)
+_PICTURE_ARGS = [_I, _P, _P, _I, _P, _P, _P, _I, _I, _P]
+#: each library's C entry points and their argument types
+ENTRY_POINTS = {
+    "kernels": {
+        "jsvx_fused_decode_picture": _PICTURE_ARGS,
+        "jsvx_recon_picture": _PICTURE_ARGS,
+        "jsvx_mc_picture": [_I, _P, _P, _I, _I, _P],
+    },
+    "baselines": {
+        "jsvx_fused_decode_plane_baseline": [_P] * 11 + [_I] * 5 + [_P],
+        "jsvx_recon_plane_baseline": [_P] * 7 + [_I] * 4 + [_P],
+        "jsvx_mc_plane_baseline": [_P] * 4 + [_I] * 4 + [_P],
+    },
+}
+
+_locks = {name: threading.Lock() for name in LIBRARIES}
+_built: "dict[str, BuiltLibrary]" = {}
 
 
 @dataclass
@@ -60,12 +84,13 @@ def nvcc_command(sources: list[str], out: str, *,
             *(["-c"] if compile_only else ["-shared"]), "-o", out, *sources]
 
 
-def _key(csrc: str = CSRC) -> str:
-    """Hash of every ``*.cu`` and ``*.cuh`` in ``csrc`` (names and bytes)
-    and of the commands: a header edit changes it as a source edit does."""
+def _key(csrc: str = CSRC, sources: tuple = SOURCES) -> str:
+    """Hash of ``sources`` and every ``*.cuh`` in ``csrc`` (names and
+    bytes) and of the commands: a header edit changes it as a source edit
+    does."""
     h = hashlib.sha256()
     for name in sorted(os.listdir(csrc)):
-        if name.endswith((".cu", ".cuh")):
+        if name in sources or name.endswith(".cuh"):
             h.update(name.encode() + b"\0")
             with open(os.path.join(csrc, name), "rb") as f:
                 h.update(f.read())
@@ -76,16 +101,9 @@ def _key(csrc: str = CSRC) -> str:
     return h.hexdigest()[:16]
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for name, argtypes in (
-            ("jsvx_fused_decode_picture",
-             [i32, ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr]),
-            ("jsvx_fused_decode_plane_baseline",
-             [ptr] * 11 + [i32] * 5 + [ptr]),
-            ("jsvx_recon_plane", [ptr] * 7 + [i32] * 4 + [ptr]),
-            ("jsvx_mc_plane", [ptr] * 4 + [i32] * 4 + [ptr])):
-        fn = getattr(lib, name)
+def _declare(lib: ctypes.CDLL, name: str) -> None:
+    for fn_name, argtypes in ENTRY_POINTS[name].items():
+        fn = getattr(lib, fn_name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
 
@@ -109,23 +127,23 @@ def _run_nvcc(commands: list[list[str]]) -> tuple[str, list[int]]:
     return "".join(logs), codes
 
 
-def load() -> BuiltLibrary:
-    """Build (if needed) and load the kernel library; once per process."""
-    global _built
-    with _lock:
-        if _built is not None:
-            return _built
-        out_dir = os.path.join(BUILD_ROOT, _key())
-        path = os.path.join(out_dir, LIB_NAME)
+def load(name: str = "kernels") -> BuiltLibrary:
+    """Build (if needed) and load library ``name``; once per process."""
+    sources = LIBRARIES[name]
+    with _locks[name]:
+        if name in _built:
+            return _built[name]
+        out_dir = os.path.join(BUILD_ROOT, _key(CSRC, sources))
+        path = os.path.join(out_dir, f"libjsvx_torch_{name}.so")
         seconds, log = 0.0, ""
         if not os.path.exists(path):
             os.makedirs(out_dir, exist_ok=True)
             tag = f"tmp{os.getpid()}"
-            objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in SOURCES]
+            objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in sources]
             t0 = time.perf_counter()
             log, codes = _run_nvcc([
                 nvcc_command([os.path.join(CSRC, s)], o, compile_only=True)
-                for s, o in zip(SOURCES, objs)])
+                for s, o in zip(sources, objs)])
             if any(codes):
                 raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
             tmp = f"{path}.{tag}"
@@ -138,6 +156,7 @@ def load() -> BuiltLibrary:
                 os.remove(o)
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
-        _declare(lib)
-        _built = BuiltLibrary(lib=lib, path=path, seconds=seconds, log=log)
-        return _built
+        _declare(lib, name)
+        _built[name] = BuiltLibrary(lib=lib, path=path, seconds=seconds,
+                                    log=log)
+        return _built[name]

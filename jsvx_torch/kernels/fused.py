@@ -15,7 +15,10 @@ The launch layout (:func:`picture_layout`) is computed here and checked
 by the kernel's entry point: a warp decodes four 8x8 blocks side by side
 in one block row, a CTA four warps, and the planes' CTAs follow one
 another, so a CTA finds its plane from the prefix of CTA counts
-(:func:`plane_of_cta`).
+(:func:`plane_of_cta`).  The MC and reconstruction kernels of the
+two-kernel route (:mod:`jsvx_torch.kernels.mc`,
+:mod:`jsvx_torch.kernels.recon`) launch on the same layout
+(``csrc/picture_layout.cuh``), through :func:`launch_dims`.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from .decode import (DecodeConstants, comp_is_chroma, decode_frame_plane,
 #: number of kernel launches in this process (reset it to 0 to count a run)
 launches = 0
 
-#: the kernel's layout constants (``csrc/fused_decode.cu``)
+#: the picture kernels' layout constants (``csrc/picture_layout.cuh``)
 MAX_PLANES = 4
 WARPS_PER_CTA = 4
 BLOCKS_PER_WARP = 4
@@ -55,6 +58,18 @@ def check_is_p(is_p: torch.Tensor, device) -> None:
             or is_p.numel() != 1:
         raise ValueError("is_p must be one int32 element on the plane's "
                          "device")
+
+
+def check_aligned(name: str, t: torch.Tensor, align: int) -> None:
+    """Raise unless ``t`` starts on an ``align``-byte boundary: what a
+    kernel's vector loads and stores need."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} is not {align}-byte aligned")
+
+
+def check_plane_shape(h: int, w: int) -> None:
+    if h % 8 or w % 8:
+        raise ValueError(f"plane {h}x{w} is not a multiple of 8")
 
 
 def plane_ctas(h: int, w: int) -> int:
@@ -100,10 +115,23 @@ def cta_blocks(h: int, w: int, cta: int) -> list:
     return out
 
 
+def launch_dims(planes) -> tuple:
+    """(h, w, is_chroma) of each plane of one launch -> the entry point's
+    ``dims`` (h, w, is_chroma and first CTA per plane) and the total CTAs:
+    the layout every picture kernel (fused, MC, reconstruction) takes."""
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"{len(planes)} planes; a picture kernel takes 1 "
+                         f"to {MAX_PLANES}")
+    begins, total = picture_layout([(h, w) for h, w, _ in planes])
+    dims = []
+    for (h, w, chroma), begin in zip(planes, begins):
+        dims += [h, w, int(chroma), begin]
+    return (ctypes.c_int * len(dims))(*dims), total
+
+
 def _check_plane(c: dict, ref: torch.Tensor, out, device) -> torch.Tensor:
     h, w = ref.shape
-    if h % 8 or w % 8:
-        raise ValueError(f"plane {h}x{w} is not a multiple of 8")
+    check_plane_shape(h, w)
     hb, wb = h // 8, w // 8
     check_tensor("levels", c["levels"], torch.int16, (h, w), device)
     for key in ("lnz", "q", "intra", "rep_add"):
@@ -116,8 +144,7 @@ def _check_plane(c: dict, ref: torch.Tensor, out, device) -> torch.Tensor:
         check_tensor("out", out, torch.uint8, (h, w), device)
     for name, t, align in (("levels", c["levels"], 16), ("mv", c["mv"], 4),
                            ("ref", ref, 8), ("out", out, 8)):
-        if t.data_ptr() % align:
-            raise ValueError(f"{name} is not {align}-byte aligned")
+        check_aligned(name, t, align)
     return out
 
 
@@ -129,29 +156,25 @@ def _launch_picture(planes: list, is_p: torch.Tensor,
     device = planes[0][1].device
     if device.type != "cuda":
         raise ValueError(f"no fused decode kernel for device {device}")
-    if not 1 <= len(planes) <= MAX_PLANES:
-        raise ValueError(f"{len(planes)} planes; the kernel takes 1 to "
-                         f"{MAX_PLANES}")
+    dims, total = launch_dims([(*ref.shape, chroma)
+                               for _, ref, _, chroma in planes])
     check_is_p(is_p, device)
-    outs, ptrs, dims = [], [], []
-    begins, total = picture_layout([tuple(ref.shape)
-                                    for _, ref, _, _ in planes])
-    for (c, ref, out, chroma), begin in zip(planes, begins):
+    outs, ptrs = [], []
+    for c, ref, out, chroma in planes:
         out = _check_plane(c, ref, out, device)
         outs.append(out)
         ptrs += [c["levels"].data_ptr(), c["lnz"].data_ptr(),
                  c["q"].data_ptr(), c["intra"].data_ptr(),
                  c["mv"].data_ptr(), c["rep_add"].data_ptr(),
                  ref.data_ptr(), out.data_ptr()]
-        dims += [ref.shape[0], ref.shape[1], int(chroma), begin]
 
     from .build import load
 
     lib = load().lib
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.jsvx_fused_decode_picture(
-        len(planes), (ctypes.c_void_p * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(dims))(*dims), total, is_p.data_ptr(),
+        len(planes), (ctypes.c_void_p * len(ptrs))(*ptrs), dims, total,
+        is_p.data_ptr(),
         (ctypes.c_int * 192)(*consts.qtab_host),
         (ctypes.c_float * 64)(*consts.c_basis_host),
         int(quirk), device.index or 0, stream)

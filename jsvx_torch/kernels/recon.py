@@ -1,34 +1,51 @@
 """The two-kernel route: sideband expansion, reconstruction kernel wrapper
-(``csrc/recon.cu``) and its per-frame driver.
+(``csrc/recon.cu``) and the route's per-picture decode.
 
 The port of ``jsvx/kernels/pallas_decode.py`` (jsvx's ``impl="pallas"``).
-Per plane: :func:`expand_sideband` turns the per-block grids into
-per-pixel ``mult`` (q * M) and ``flags`` planes (torch ops), the MC kernel
-(:mod:`jsvx_torch.kernels.mc`) computes the int16 prediction, and the
+Per picture on a card: the MC kernel (:mod:`jsvx_torch.kernels.mc`)
+computes the int16 prediction of every plane in one launch, then the
 reconstruction kernel dequantises, runs the 8x8 IDCT, adds the
-prediction, rounds and clamps.
+prediction, rounds and clamps every plane in one launch
+(:func:`recon_picture`).
 
-:func:`recon_plane` is the reconstruction kernel's plain version.  It
-follows the spec's mismatch control (``sign(d)``), where jsvx's
-``_recon_kernel`` subtracts ``sign(level)``, and sums the IDCT in the
-fused route's fixed order, so the two routes agree bit for bit.
+The reconstruction kernel reads the dequantisation sideband per block:
+the ``lnz``/``q``/``intra`` grids, with the quant matrices and scan order
+from the launch, as the fused kernel reads them.  jsvx's ``_recon_kernel``
+takes per-pixel ``mult`` (q * M) and ``flags`` planes instead, which
+:func:`expand_sideband` makes from the grids; here that expansion is
+folded into the launch, so the route runs no torch op between its two
+launches.  A frame that also carries the parser's per-pixel sideband
+(``StreamParser(emit_sideband=True)``) decodes from its grids all the
+same.  :func:`recon_plane` is the per-pixel plain version, jsvx's
+interface; :func:`recon_plane_blocks`, :func:`recon_plane` on the
+expanded planes, is the kernel's.
+
+The plain versions follow the spec's mismatch control (``sign(d)``),
+where jsvx's ``_recon_kernel`` subtracts ``sign(level)``, and sum the IDCT
+in the fused route's fixed order, so the two routes agree bit for bit.
 
 A tensor on the CPU goes to the plain version.  A tensor on a CUDA device
 launches the kernel or raises; there is no fallback.  ``launches`` counts
-the reconstruction kernel's launches, and nothing else.
+the reconstruction kernel's launches, one per picture, and nothing else;
+``expansions`` counts :func:`expand_sideband`'s calls.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from .decode import (DecodeConstants, comp_is_chroma, dequant_values,
                      frame_comp_keys, idct_plane)
-from .fused import check_is_p, check_tensor
-from .mc import predict_plane_mc
+from .fused import (check_aligned, check_is_p, check_plane_shape,
+                    check_tensor, launch_dims)
+from .mc import predict_picture_mc
 
 #: number of kernel launches in this process (reset it to 0 to count a run)
 launches = 0
+#: number of :func:`expand_sideband` calls (reset it to 0 to count a run)
+expansions = 0
 
 
 def expand_sideband(comp_inputs: dict, consts: DecodeConstants) -> tuple:
@@ -38,6 +55,8 @@ def expand_sideband(comp_inputs: dict, consts: DecodeConstants) -> tuple:
     non-intra, bit1 inside the coded scan (scan position < lnz), bit2 the
     intra DC position.  Bit-equal to jsvx's ``expand_sideband``.
     """
+    global expansions
+    expansions += 1
     q = comp_inputs["q"]
     hb, wb = q.shape
     h, w = hb * 8, wb * 8
@@ -76,7 +95,8 @@ def recon_plane(levels: torch.Tensor, mult: torch.Tensor,
                 consts: DecodeConstants,
                 quirk: bool = False) -> torch.Tensor:
     """Dequantise from ``mult``/``flags``, IDCT, add ``pred`` (zeroed for
-    an I picture by ``is_p``), round, clamp -> uint8 plane."""
+    an I picture by ``is_p``), round, clamp -> uint8 plane: the per-pixel
+    form's plain version."""
     d = dequant_sideband(levels, mult, flags, quirk)
     res = idct_plane(d.to(torch.float32), consts)
     p = pred.to(torch.int32) * is_p.to(torch.int32)
@@ -84,86 +104,112 @@ def recon_plane(levels: torch.Tensor, mult: torch.Tensor,
     return out.clamp(0.0, 255.0).to(torch.uint8)
 
 
-def fused_recon_plane(levels: torch.Tensor, mult: torch.Tensor,
-                      flags: torch.Tensor, pred: torch.Tensor,
-                      is_p: torch.Tensor, consts: DecodeConstants,
-                      quirk: bool = False,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
-    """One plane -> uint8 (h, w) (``out`` if given).
+def recon_plane_blocks(comp_inputs: dict, pred: torch.Tensor,
+                       is_p: torch.Tensor, consts: DecodeConstants,
+                       quirk: bool = False) -> torch.Tensor:
+    """The per-block form's plain version: :func:`recon_plane` on the
+    per-pixel planes :func:`expand_sideband` makes from the plane's
+    ``lnz``/``q``/``intra`` grids."""
+    return recon_plane(comp_inputs["levels"],
+                       *expand_sideband(comp_inputs, consts), pred, is_p,
+                       consts, quirk)
 
-    ``levels``, ``mult`` int16 (h, w); ``flags`` uint8 (h, w); ``pred``
-    int16 (h, w), the MC kernel's output; ``is_p`` an int32 tensor of one
-    element.
-    """
-    global launches
-    device = levels.device
-    if device.type == "cpu":
-        plane = recon_plane(levels, mult, flags, pred, is_p, consts, quirk)
-        if out is None:
-            return plane
-        out.copy_(plane)
-        return out
-    if device.type != "cuda":
-        raise ValueError(f"no reconstruction kernel for device {device}")
 
+def check_recon_plane(c: dict, pred: torch.Tensor, out: torch.Tensor | None,
+                      device) -> torch.Tensor:
+    """Raise unless one plane's tensors are what the kernel takes: all on
+    ``device``, contiguous, ``levels`` int16 (h, w) with h and w multiples
+    of 8; ``lnz``, ``q``, ``intra`` uint8 (h/8, w/8); ``pred`` int16 (h,
+    w); ``out`` uint8 (h, w); levels and pred 16-byte, out 8-byte aligned.
+    Returns ``out``, allocated when None."""
+    levels = c["levels"]
+    if levels.dim() != 2:
+        raise ValueError(f"levels has {levels.dim()} dimensions, expected 2")
     h, w = levels.shape
-    if h % 8 or w % 8:
-        raise ValueError(f"plane {h}x{w} is not a multiple of 8")
+    check_plane_shape(h, w)
     check_tensor("levels", levels, torch.int16, (h, w), device)
-    check_tensor("mult", mult, torch.int16, (h, w), device)
-    check_tensor("flags", flags, torch.uint8, (h, w), device)
+    for key in ("lnz", "q", "intra"):
+        check_tensor(key, c[key], torch.uint8, (h // 8, w // 8), device)
     check_tensor("pred", pred, torch.int16, (h, w), device)
-    check_is_p(is_p, device)
-    c_basis = consts.c_basis
-    check_tensor("c_basis", c_basis, torch.float32, (8, 8), device)
     if out is None:
         out = torch.empty((h, w), dtype=torch.uint8, device=device)
     else:
         check_tensor("out", out, torch.uint8, (h, w), device)
+    for name, t, align in (("levels", levels, 16), ("pred", pred, 16),
+                           ("out", out, 8)):
+        check_aligned(name, t, align)
+    return out
+
+
+def _launch(comps: list, preds: tuple, outs: tuple, is_p: torch.Tensor,
+            consts: DecodeConstants, quirk: bool) -> list:
+    """One launch over the planes ``comps`` (their predictions ``preds``,
+    outputs ``outs``, each None or a tensor), all on one CUDA device;
+    returns the reconstructed planes."""
+    global launches
+    device = comps[0]["levels"].device
+    if device.type != "cuda":
+        raise ValueError(f"no reconstruction kernel for device {device}")
+    check_is_p(is_p, device)
+    res, ptrs = [], []
+    for c, pred, out in zip(comps, preds, outs, strict=True):
+        out = check_recon_plane(c, pred, out, device)
+        res.append(out)
+        ptrs += [c["levels"].data_ptr(), c["lnz"].data_ptr(),
+                 c["q"].data_ptr(), c["intra"].data_ptr(), pred.data_ptr(),
+                 out.data_ptr()]
+    dims, total = launch_dims([(*c["levels"].shape, comp_is_chroma(i))
+                               for i, c in enumerate(comps)])
 
     from .build import load
 
     lib = load().lib
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = lib.jsvx_recon_plane(
-        levels.data_ptr(), mult.data_ptr(), flags.data_ptr(),
-        pred.data_ptr(), is_p.data_ptr(), c_basis.data_ptr(),
-        out.data_ptr(), h, w, int(quirk), device.index or 0, stream)
+    rc = lib.jsvx_recon_picture(
+        len(comps), (ctypes.c_void_p * len(ptrs))(*ptrs), dims, total,
+        is_p.data_ptr(), (ctypes.c_int * 192)(*consts.qtab_host),
+        (ctypes.c_float * 64)(*consts.c_basis_host), int(quirk),
+        device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"reconstruction kernel launch failed: "
                            f"cudaError_t {rc}")
     launches += 1
-    return out
+    return res
 
 
-def decode_frame_plane_two_kernel(comp_inputs: dict, ref: torch.Tensor,
-                                  is_p: torch.Tensor,
-                                  consts: DecodeConstants, is_chroma: bool,
-                                  quirk_oddify_zeros: bool = False,
-                                  out: torch.Tensor | None = None
-                                  ) -> torch.Tensor:
-    """One plane of one picture through MC then reconstruction.
+def recon_picture(frame: dict, preds: tuple, is_p: torch.Tensor,
+                  consts: DecodeConstants, quirk: bool = False,
+                  outs: tuple | None = None) -> tuple:
+    """Every plane of one picture from its predictions ``preds`` (int16,
+    the MC kernel's output) -> uint8 planes (``outs`` if given).
 
-    Parser-emitted ``mult``/``flags`` are used when ``comp_inputs``
-    carries them; otherwise they are expanded from the per-block grids.
+    Each plane is read from its ``levels`` and per-block ``lnz``, ``q``
+    and ``intra``.  One kernel launch on a card; the plain version plane
+    by plane on the CPU.
     """
-    if "mult" in comp_inputs:
-        mult, flags = comp_inputs["mult"], comp_inputs["flags"]
-    else:
-        mult, flags = expand_sideband(comp_inputs, consts)
-    pred = predict_plane_mc(ref, comp_inputs["mv"], comp_inputs["rep_add"],
-                            is_chroma)
-    return fused_recon_plane(comp_inputs["levels"], mult, flags, pred, is_p,
-                             consts, quirk_oddify_zeros, out=out)
+    comps = [frame[k] for k in frame_comp_keys(frame)]
+    outs = (None,) * len(comps) if outs is None else tuple(outs)
+    if comps[0]["levels"].device.type != "cpu":
+        return tuple(_launch(comps, tuple(preds), outs, is_p, consts,
+                             quirk))
+    planes = []
+    for c, pred, out in zip(comps, preds, outs, strict=True):
+        plane = recon_plane_blocks(c, pred, is_p, consts, quirk)
+        if out is not None:
+            out.copy_(plane)
+            plane = out
+        planes.append(plane)
+    return tuple(planes)
 
 
 def decode_frame_planes_two_kernel(frame: dict, refs: tuple,
                                    consts: DecodeConstants,
                                    quirk_oddify_zeros: bool = False,
                                    outs: tuple | None = None) -> tuple:
-    """All planes of one picture, two kernel launches per plane."""
-    return tuple(
-        decode_frame_plane_two_kernel(
-            frame[k], refs[i], frame["is_p"], consts, comp_is_chroma(i),
-            quirk_oddify_zeros, out=None if outs is None else outs[i])
-        for i, k in enumerate(frame_comp_keys(frame)))
+    """All planes of one picture through MC then reconstruction: two
+    kernel launches on a card, with no torch op between them (the
+    per-block sideband goes into the reconstruction launch as it is);
+    the plain versions plane by plane on the CPU."""
+    preds = predict_picture_mc(frame, refs)
+    return recon_picture(frame, preds, frame["is_p"], consts,
+                         quirk_oddify_zeros, outs)

@@ -6,10 +6,10 @@ frames ignore the carry (their prediction term is zeroed), P frames
 predict from it.  ``impl`` picks the per-frame decode:
 
 * ``"fused"`` (the default): one launch of the fused decode kernel per
-  plane (:mod:`jsvx_torch.kernels.fused`), jsvx's ``impl="fused"``;
-* ``"two_kernel"``: the MC kernel then the reconstruction kernel per
-  plane (:mod:`jsvx_torch.kernels.recon`), jsvx's ``impl="pallas"``,
-  renamed because no Pallas runs here.
+  picture (:mod:`jsvx_torch.kernels.fused`), jsvx's ``impl="fused"``;
+* ``"two_kernel"``: one launch of the MC kernel then one of the
+  reconstruction kernel per picture (:mod:`jsvx_torch.kernels.recon`),
+  jsvx's ``impl="pallas"``, renamed because no Pallas runs here.
 
 Both sum the IDCT in one order and dequantise by one rule, so they agree
 bit for bit.  On the CPU both run their plain versions.

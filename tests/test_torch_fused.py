@@ -121,10 +121,11 @@ PICTURES = {
 
 @pytest.mark.parametrize("name", sorted(PICTURES))
 def test_picture_layout_covers_every_block_once(name):
-    """The per-picture descriptor packing: each plane's first CTA is the
-    prefix sum of the CTA counts before it, every CTA finds its own plane,
-    and the CTAs of a plane decode each of its 8x8 blocks exactly once,
-    with no CTA left empty."""
+    """The per-picture descriptor packing of the three picture kernels
+    (fused, MC, reconstruction): each plane's first CTA is the prefix sum
+    of the CTA counts before it, every CTA finds its own plane, and the
+    CTAs of a plane decode each of its 8x8 blocks exactly once, with no
+    CTA left empty."""
     shapes = PICTURES[name]
     begins, total = fused.picture_layout(shapes)
     counts = [fused.plane_ctas(h, w) for h, w in shapes]
@@ -153,6 +154,65 @@ def test_picture_layout_of_1080p():
     assert begins == (0, 2040, 2550) and total == 3060
 
 
+#: the kernels that launch one picture on ``csrc/picture_layout.cuh``
+LAYOUT_USERS = ("fused_decode.cu", "mc.cu", "recon.cu")
+
+
+@pytest.mark.parametrize("source", LAYOUT_USERS)
+def test_picture_kernels_share_one_layout(source):
+    """The fused, MC and reconstruction kernels take the layout from one
+    header: each includes it, finds its plane, task and plane descriptors
+    through it, and keeps no copy of its constants or its index math."""
+    with open(os.path.join(build.CSRC, source)) as f:
+        text = f.read()
+    assert '#include "picture_layout.cuh"' in text
+    for call in ("jsvx::cta_plane(", "jsvx::row_task(",
+                 "jsvx::set_plane_layout("):
+        assert call in text, call
+    for copy in ("constexpr int kWarps", "constexpr int kBlocksPerWarp",
+                 "inv_groups", "plane_ctas(", "blockIdx"):
+        assert copy not in text, copy
+
+
+def test_layout_constants_match_the_header():
+    """fused.py's layout constants are the header's."""
+    with open(os.path.join(build.CSRC, "picture_layout.cuh")) as f:
+        text = f.read()
+    for name, value in (("kMaxPlanes", fused.MAX_PLANES),
+                        ("kWarps", fused.WARPS_PER_CTA),
+                        ("kBlocksPerWarp", fused.BLOCKS_PER_WARP)):
+        assert f"constexpr int {name} = {value};" in text, name
+
+
+def test_wrappers_launch_through_one_layout():
+    """The MC and reconstruction wrappers lay out their launches with
+    fused.py's functions, not a copy of them."""
+    from jsvx_torch.kernels import mc, recon
+
+    assert mc.launch_dims is fused.launch_dims
+    assert recon.launch_dims is fused.launch_dims
+
+
+@pytest.mark.parametrize("name", sorted(PICTURES))
+def test_launch_dims_follow_the_picture_layout(name):
+    """The dims every picture kernel's entry point takes: (h, w,
+    is_chroma, first CTA) per plane, the first CTAs and the total from
+    :func:`picture_layout`."""
+    shapes = PICTURES[name]
+    planes = [(h, w, i in (1, 2)) for i, (h, w) in enumerate(shapes)]
+    dims, total = fused.launch_dims(planes)
+    begins, want_total = fused.picture_layout(shapes)
+    assert total == want_total
+    assert list(dims) == [v for (h, w, chroma), b in zip(planes, begins)
+                          for v in (h, w, int(chroma), b)]
+
+
+def test_launch_dims_reject_plane_counts():
+    for n in (0, 5):
+        with pytest.raises(ValueError, match="a picture kernel takes 1 to 4"):
+            fused.launch_dims([(16, 16, False)] * n)
+
+
 def test_wrapper_rejects_other_devices():
     c, ref = _plane_inputs(16, 16, 4)
     tc, tref = _on(c, ref, "meta")
@@ -172,10 +232,14 @@ def test_nvcc_command_targets_hopper_without_fma():
     assert "-c" in obj and "-shared" not in obj
     assert obj[obj.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert "-fmad=false" in obj and cmd[-1] == "k.cu"
-    assert build.SOURCES == ("fused_decode.cu", "recon.cu", "mc.cu",
-                             "fused_decode_baseline.cu")
+    assert build.SOURCES == build.LIBRARIES["kernels"] == (
+        "fused_decode.cu", "recon.cu", "mc.cu")
+    # the first designs, which only chip_smoke.py launches, build apart
+    assert build.LIBRARIES["baselines"] == (
+        "fused_decode_baseline.cu", "recon_baseline.cu", "mc_baseline.cu")
     assert all(os.path.exists(os.path.join(build.CSRC, s))
-               for s in build.SOURCES)
+               for sources in build.LIBRARIES.values() for s in sources)
+    assert set(build.ENTRY_POINTS) == set(build.LIBRARIES)
     assert build.BUILD_ROOT == os.path.join(REPO, "build", "jsvx_torch")
 
 
@@ -200,6 +264,32 @@ def test_build_key_tracks_every_source_and_header(tmp_path):
         assert build._key(str(csrc)) != key, name
         path.write_bytes(orig)
         assert build._key(str(csrc)) == key
+
+
+def test_build_keys_keep_the_first_designs_apart(tmp_path):
+    """An edit to a first design changes the key of the library of first
+    designs and not that of the kernels the decode runs; an edit to a
+    kernel the reverse; a header edit changes both."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+
+    def keys():
+        return tuple(build._key(str(csrc), sources)
+                     for sources in build.LIBRARIES.values())
+
+    before = keys()
+    assert before[0] != before[1]
+    for name, changed in (("mc_baseline.cu", (False, True)),
+                          ("recon.cu", (True, False)),
+                          ("picture_layout.cuh", (True, True))):
+        path = csrc / name
+        orig = path.read_bytes()
+        path.write_bytes(orig + b"\n// edited\n")
+        assert tuple(a != b for a, b in zip(keys(), before)) == changed, name
+        path.write_bytes(orig)
+    assert keys() == before
 
 
 @pytest.mark.cuda

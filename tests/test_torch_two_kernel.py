@@ -43,7 +43,7 @@ from jsvx_torch.kernels.carry import (constants_from_jax, frame_from_jax,
                                       refs_from_numpy)
 from jsvx_torch.kernels.fused import decode_frame_planes_fused
 
-from test_torch_fused import _on, _plane_inputs
+from test_torch_fused import PICTURES, _on, _plane_inputs
 
 torch.set_num_threads(1)
 
@@ -241,13 +241,11 @@ def test_plain_recon_matches_pallas_recon(quirk):
             jnp.asarray(lv), jnp.asarray(mult), jnp.asarray(flags),
             jnp.asarray((pred * is_p).astype(np.int32)), quirk=quirk,
             interpret=True))
-        before = recon.launches
-        got = recon.fused_recon_plane(
+        got = recon.recon_plane(
             torch.from_numpy(lv), torch.from_numpy(mult),
             torch.from_numpy(flags),
             torch.from_numpy(pred.astype(np.int16)),
             torch.tensor(is_p, dtype=torch.int32), consts, quirk).numpy()
-        assert recon.launches == before
         assert got.dtype == np.uint8
         diff = np.abs(got.astype(int) - want.astype(int))
         assert diff.max() <= 1
@@ -255,6 +253,50 @@ def test_plain_recon_matches_pallas_recon(quirk):
         n_pix += diff.size
     print(f"recon quirk={quirk}: {n_diff} of {n_pix} pixels differ")
     assert n_diff <= 1e-3 * n_pix
+
+
+@needs_jax
+@pytest.mark.parametrize("quirk", [False, True])
+@pytest.mark.parametrize("clip_name", CLIPS)
+def test_per_block_form_matches_per_pixel_and_jsvx(clip_name, quirk,
+                                                   request):
+    """The per-block form's plain version (``recon_plane_blocks``) equals
+    the per-pixel form's (``recon_plane``) on the parser's own sideband,
+    and is within the IDCT-order tolerance of jsvx's ``expand_sideband`` +
+    ``fused_recon_plane`` in interpret mode."""
+    clip = request.getfixturevalue(clip_name)
+    frames = _frames(clip[:3], emit_sideband=True, gop_size=3,
+                     quantizer_scale=4, me_range=4)
+    rng = np.random.default_rng(17)
+    n_diff = n_pix = 0
+    before = recon.launches
+    for ft, seq in frames:
+        jc = jdec.make_constants(seq)
+        tc = _port_consts(jc)
+        d = jdec.frame_to_device(ft)
+        td = frame_from_jax(d, "cpu")
+        is_p = td["is_p"]
+        for key in jdec.frame_comp_keys(d):
+            c = td[key]
+            assert "mult" in c                   # the parser's sideband
+            pred = rng.integers(0, 256, c["levels"].shape)
+            tpred = torch.from_numpy(pred.astype(np.int16))
+            got = recon.recon_plane_blocks(c, tpred, is_p, tc, quirk)
+            assert got.dtype == torch.uint8
+            assert torch.equal(got, recon.recon_plane(
+                c["levels"], c["mult"], c["flags"], tpred, is_p, tc, quirk))
+            wm, wf = j_expand(d[key], jc, d["is_p"])
+            want = np.asarray(j_recon(
+                jnp.asarray(d[key]["levels"]), wm, wf,
+                jnp.asarray((pred * int(d["is_p"])).astype(np.int32)),
+                quirk=quirk, interpret=True))
+            diff = np.abs(got.numpy().astype(int) - want.astype(int))
+            assert diff.max() <= 1
+            n_diff += int((diff > 0).sum())
+            n_pix += diff.size
+    print(f"{clip_name} quirk={quirk}: {n_diff} of {n_pix} pixels differ "
+          f"from jsvx")
+    assert n_diff <= 1e-3 * n_pix and recon.launches == before
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +373,20 @@ def test_two_kernel_route_bit_equal_to_fused(clip_name, quirk, request):
                              quirk) > 0
 
 
+@pytest.mark.parametrize("quirk", [False, True])
+@pytest.mark.parametrize("clip_name", CLIPS)
+def test_two_kernel_route_with_parser_sideband_bit_equal_to_fused(
+        clip_name, quirk, request):
+    """Pictures that carry the parser's per-pixel sideband as well as the
+    per-block grids decode from the grids, bit-equal to the fused
+    route."""
+    clip = request.getfixturevalue(clip_name)
+    frames = _frames(clip, emit_sideband=True, gop_size=3,
+                     quantizer_scale=4, me_range=4, half_pel_refine=True)
+    assert all(ft.mult is not None for ft, _ in frames)
+    assert _routes_bit_equal(frames, quirk) > 0
+
+
 def test_custom_small_quant_matrices(tiny_clip):
     """Entries <= 5 at quantiser scale 1 reach d == 0 for a positive level,
     where jsvx's ``_recon_kernel`` (``d - sign(lv)``) and the spec
@@ -387,11 +443,10 @@ def test_wrappers_on_cpu_are_the_plain_versions(chroma):
     assert pred.dtype == torch.int16 and torch.equal(pred.int(), want)
     assert torch.equal(out16, pred)
     mult, flags = recon.expand_sideband(c, consts)
-    got = recon.fused_recon_plane(c["levels"], mult, flags, pred, is_p,
-                                  consts)
+    got, = recon.recon_picture({"y": c}, (pred,), is_p, consts)
     out8 = torch.zeros((24, 40), dtype=torch.uint8)
-    assert recon.fused_recon_plane(c["levels"], mult, flags, pred, is_p,
-                                   consts, out=out8) is out8
+    assert recon.recon_picture({"y": c}, (pred,), is_p, consts,
+                               outs=(out8,))[0] is out8
     assert torch.equal(got, recon.recon_plane(c["levels"], mult, flags,
                                               pred, is_p, consts))
     assert torch.equal(out8, got)
@@ -404,12 +459,178 @@ def test_wrappers_reject_other_devices():
     c, ref = _plane_case(16, 16, 4, "meta")
     with pytest.raises(ValueError, match="no motion-compensation kernel"):
         mc.predict_plane_mc(ref, c["mv"], c["rep_add"], False)
-    lv = c["levels"]
+    pred = torch.empty((16, 16), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError, match="no reconstruction kernel"):
-        recon.fused_recon_plane(lv, lv, c["lnz"], lv,
-                                torch.zeros((), dtype=torch.int32,
-                                            device="meta"),
-                                tdec.make_constants(None, "meta"))
+        recon.recon_picture({"y": c}, (pred,),
+                            torch.zeros((), dtype=torch.int32,
+                                        device="meta"),
+                            tdec.make_constants(None, "meta"))
+
+
+def _picture(name, seed, device="cpu", per_pixel=False, sparse=False):
+    """A picture of the plane shapes ``PICTURES[name]`` from random
+    per-block grids (carrying the per-pixel sideband expanded from them
+    too, as the parser's, when ``per_pixel``; with 90 % of the blocks
+    uncoded when ``sparse``), its reference planes and constants."""
+    consts = tdec.make_constants(None, device)
+    frame = {"is_p": torch.tensor(1, dtype=torch.int32, device=device)}
+    refs = []
+    for i, (key, (h, w)) in enumerate(zip(tdec.COMP_KEYS, PICTURES[name])):
+        c, ref = _plane_inputs(h, w, seed + i)
+        if sparse:
+            rng = np.random.default_rng(seed + 100 + i)
+            keep = rng.random(c["lnz"].shape) < 0.1
+            c["lnz"] = c["lnz"] * keep
+            c["intra"] = c["intra"] * keep
+        c, ref = _on(c, ref, device)
+        if per_pixel:
+            c["mult"], c["flags"] = recon.expand_sideband(c, consts)
+        frame[key] = c
+        refs.append(ref)
+    return frame, tuple(refs), consts
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+@pytest.mark.parametrize("name", ["48x64", "odd_chroma", "yuva_96x128"])
+def test_picture_wrappers_on_cpu_are_the_plain_versions(name, per_pixel):
+    """``predict_picture_mc`` and ``recon_picture`` on the CPU: the
+    per-plane plain versions, into ``outs`` when given, with the launch
+    counters unchanged, whether or not the picture also carries per-pixel
+    sideband; the route equals the fused route."""
+    frame, refs, consts = _picture(name, 11, per_pixel=per_pixel)
+    is_p = frame["is_p"]
+    keys = tdec.frame_comp_keys(frame)
+    counts = (mc.launches, recon.launches)
+    preds = mc.predict_picture_mc(frame, refs)
+    outs16 = tuple(torch.full(r.shape, 7, dtype=torch.int16) for r in refs)
+    assert all(a is b for a, b in zip(
+        mc.predict_picture_mc(frame, refs, outs=outs16), outs16))
+    got = recon.recon_picture(frame, preds, is_p, consts, True)
+    outs8 = tuple(torch.zeros(r.shape, dtype=torch.uint8) for r in refs)
+    assert all(a is b for a, b in zip(
+        recon.recon_picture(frame, preds, is_p, consts, True, outs=outs8),
+        outs8))
+    assert len(preds) == len(got) == len(keys) == len(PICTURES[name])
+    for i, key in enumerate(keys):
+        c, chroma = frame[key], tdec.comp_is_chroma(i)
+        want_pred = tdec.predict_plane(refs[i], c["mv"], c["rep_add"],
+                                       chroma).to(torch.int16)
+        assert preds[i].dtype == torch.int16
+        assert torch.equal(preds[i], want_pred)
+        assert torch.equal(outs16[i], want_pred)
+        want = recon.recon_plane_blocks(c, want_pred, is_p, consts, True)
+        assert torch.equal(got[i], want) and torch.equal(outs8[i], want)
+        if per_pixel:
+            assert torch.equal(want, recon.recon_plane(
+                c["levels"], c["mult"], c["flags"], want_pred, is_p, consts,
+                True))
+    route = recon.decode_frame_planes_two_kernel(frame, refs, consts, True)
+    fused = decode_frame_planes_fused(frame, refs, consts, True)
+    assert all(torch.equal(a, b) for a, b in zip(route, fused))
+    assert (mc.launches, recon.launches) == counts
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned start."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _bad(case):
+    """(check, kwargs, exception, message) for one rejected input."""
+    cpu = torch.device("cpu")
+    c, ref = _plane_case(24, 40, 5)
+    consts = tdec.make_constants(None, "cpu")
+    pred = torch.zeros((24, 40), dtype=torch.int16)
+
+    def mc_check(**kw):
+        args = dict(ref=ref, mv_blk=c["mv"], rep_add_blk=c["rep_add"],
+                    out=None, device=cpu)
+        args.update(kw)
+        return mc.check_mc_plane(**args)
+
+    def recon_check(**kw):
+        args = dict(c=c, pred=pred, out=None, device=cpu)
+        args.update(kw)
+        return recon.check_recon_plane(**args)
+
+    cases = {
+        "mc_ref_dtype": (mc_check, dict(ref=ref.to(torch.int16)),
+                         TypeError, "ref is torch.int16"),
+        "mc_mv_shape": (mc_check, dict(mv_blk=c["mv"][:, :, :1]),
+                        ValueError, "mv has shape"),
+        "mc_out_dtype": (mc_check, dict(out=torch.empty((24, 40),
+                                                        dtype=torch.uint8)),
+                         TypeError, "out is torch.uint8"),
+        "mc_out_misaligned": (mc_check, dict(out=_misaligned(pred)),
+                              ValueError, "out is not 16-byte aligned"),
+        "mc_ref_misaligned": (mc_check, dict(ref=_misaligned(ref)),
+                              ValueError, "ref is not 8-byte aligned"),
+        "mc_ragged_plane": (mc_check, dict(
+            ref=torch.zeros((20, 40), dtype=torch.uint8)),
+            ValueError, "not a multiple of 8"),
+        "mc_other_device": (mc_check, dict(device=torch.device("meta")),
+                            ValueError, "ref is on cpu"),
+        "recon_levels_dtype": (recon_check, dict(c=dict(
+            c, levels=c["levels"].to(torch.int32))),
+            TypeError, "levels is torch.int32"),
+        "recon_q_shape": (recon_check, dict(c=dict(
+            c, q=c["q"][:2])), ValueError, "q has shape"),
+        "recon_lnz_dtype": (recon_check, dict(c=dict(
+            c, lnz=c["lnz"].to(torch.int16))), TypeError, "lnz is"),
+        "recon_pred_misaligned": (recon_check, dict(pred=_misaligned(pred)),
+                                  ValueError, "pred is not 16-byte aligned"),
+        "recon_levels_misaligned": (recon_check, dict(c=dict(
+            c, levels=_misaligned(c["levels"]))), ValueError,
+            "levels is not 16-byte aligned"),
+        "recon_out_misaligned": (recon_check, dict(
+            out=_misaligned(torch.zeros((24, 40), dtype=torch.uint8))),
+            ValueError, "out is not 8-byte aligned"),
+        "recon_other_device": (recon_check, dict(device=torch.device("meta")),
+                               ValueError, "levels is on cpu"),
+        "recon_intra_device": (recon_check, dict(c=dict(
+            c, intra=c["intra"].to("meta"))), ValueError, "intra is on meta"),
+    }
+    return cases[case]
+
+
+@pytest.mark.parametrize("case", [
+    "mc_ref_dtype", "mc_mv_shape", "mc_out_dtype", "mc_out_misaligned",
+    "mc_ref_misaligned", "mc_ragged_plane", "mc_other_device",
+    "recon_levels_dtype", "recon_q_shape", "recon_lnz_dtype",
+    "recon_pred_misaligned", "recon_levels_misaligned",
+    "recon_out_misaligned", "recon_other_device", "recon_intra_device"])
+def test_picture_wrappers_reject_bad_inputs(case):
+    """What the picture launches check before a launch: dtype, shape,
+    device and the alignment of the vector loads."""
+    check, kwargs, exc, message = _bad(case)
+    with pytest.raises(exc, match=message):
+        check(**kwargs)
+
+
+def test_picture_wrappers_check_inputs_that_are_right():
+    """The same checks pass on the inputs the route gives them (and
+    allocate the outputs)."""
+    cpu = torch.device("cpu")
+    frame, refs, consts = _picture("48x64", 3)
+    for i, key in enumerate(tdec.frame_comp_keys(frame)):
+        c = frame[key]
+        pred = mc.check_mc_plane(refs[i], c["mv"], c["rep_add"], None, cpu)
+        assert pred.dtype == torch.int16 and pred.shape == refs[i].shape
+        out = recon.check_recon_plane(c, pred, None, cpu)
+        assert out.dtype == torch.uint8 and out.shape == refs[i].shape
+
+
+def test_picture_wrappers_reject_other_devices():
+    frame, refs, consts = _picture("48x64", 4, "meta")
+    with pytest.raises(ValueError, match="no motion-compensation kernel"):
+        mc.predict_picture_mc(frame, refs)
+    preds = tuple(torch.empty(r.shape, dtype=torch.int16, device="meta")
+                  for r in refs)
+    with pytest.raises(ValueError, match="no reconstruction kernel"):
+        recon.recon_picture(frame, preds, frame["is_p"], consts)
 
 
 # ---------------------------------------------------------------------------
@@ -431,12 +652,41 @@ def test_kernels_match_plain_on_the_card():
             pred = mc.predict_plane_mc(ref, c["mv"], c["rep_add"], chroma)
             want_pred = tdec.predict_plane(ref, c["mv"], c["rep_add"],
                                            chroma).to(torch.int16)
-            mult, flags = recon.expand_sideband(c, consts)
-            got = recon.fused_recon_plane(c["levels"], mult, flags, pred,
-                                          ip, consts, quirk)
-            want = recon.recon_plane(c["levels"], mult, flags, want_pred,
-                                     ip, consts, quirk)
+            got, = recon.recon_picture({"y": c}, (pred,), ip, consts, quirk)
+            want = recon.recon_plane_blocks(c, want_pred, ip, consts, quirk)
             torch.cuda.synchronize()
             assert (mc.launches, recon.launches) == (mc0 + 1, rc0 + 1)
             assert torch.equal(pred, want_pred), (h, w, chroma)
             assert torch.equal(got, want), (h, w, chroma, quirk, is_p)
+    # whole pictures, dense and 90 % uncoded, with and without the
+    # per-pixel sideband: one launch each per picture, equal to the plain
+    # versions and to the fused route
+    for name in sorted(PICTURES):
+        for sparse, quirk in ((False, False), (True, False), (True, True)):
+            frames = [_picture(name, 7, dev, per_pixel, sparse)
+                      for per_pixel in (False, True)]
+            refs = frames[0][1]
+            mc0, rc0 = mc.launches, recon.launches
+            preds = mc.predict_picture_mc(frames[0][0], refs)
+            got = [recon.recon_picture(f, preds, f["is_p"], consts, quirk)
+                   for f, _, _ in frames]
+            fused = decode_frame_planes_fused(frames[0][0], refs, consts,
+                                              quirk)
+            torch.cuda.synchronize()
+            assert (mc.launches, recon.launches) == (mc0 + 1, rc0 + 2), name
+            frame = frames[1][0]
+            for i, key in enumerate(tdec.frame_comp_keys(frame)):
+                c = frame[key]
+                want_pred = tdec.predict_plane(
+                    refs[i], c["mv"], c["rep_add"],
+                    tdec.comp_is_chroma(i)).to(torch.int16)
+                assert torch.equal(preds[i], want_pred), (name, key)
+                want = recon.recon_plane_blocks(c, want_pred, frame["is_p"],
+                                                consts, quirk)
+                assert torch.equal(want, recon.recon_plane(
+                    c["levels"], c["mult"], c["flags"], want_pred,
+                    frame["is_p"], consts, quirk)), (name, key)
+                for sideband in got:
+                    assert torch.equal(sideband[i], want), (name, key,
+                                                            sparse)
+                assert torch.equal(fused[i], want), (name, key, sparse)
