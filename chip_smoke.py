@@ -45,7 +45,23 @@ each printing its own lines:
    calls, in turns with its first design, beside the bytes it must move
    and its bound; the GOP decode of both routes (the two-kernel route
    also with its first designs and the torch sideband expansion),
-   ``transcode``, ``StreamDecoder``, the Decoder, the Player and colour.
+   ``transcode``, ``StreamDecoder``, the Decoder, the Player and colour;
+6. row-band and GOP sharding (``jsvx_torch.shard``): a (gop 1, rows 1)
+   mesh without a process group over both GOPs of the 1080p fixture; the
+   MC and reconstruction launches of a P picture in four row bands, on
+   the fixture and on the synthetic f_code 6 GOP (halo 272: the
+   all-gather's regime), each band held bit-equal to the kernels' plain
+   versions on its extended planes and to the whole picture's launch
+   (the fixture's then timed); four gloo ranks on this card, each: the
+   fixture's GOP 0 in four bands (MC and reconstruction once per picture,
+   no torch sideband expansion), gathered bit-equal to the plain decode
+   (the kernels' plain versions, torch ops on the card), both GOPs on a
+   (gop 2, rows 2) mesh, in bands and through ``decode_gops_parallel``
+   (the fused kernel once per picture), the synthetic f_code 6 GOP
+   through the all-gather, each bit-equal to the plain decode, the
+   exchange per plane and the banded GOP's wall time (host clock); the
+   same in one NCCL rank; ``tools/bench_scaling.py`` with two processes
+   on the card.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
@@ -58,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -66,26 +83,32 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.kernels import build, fused, mc, recon
 from jsvx_torch.kernels.color import ycbcr_to_rgb
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
-                                       frame_comp_keys, make_constants,
-                                       predict_plane)
+                                       decode_frame_planes, frame_comp_keys,
+                                       make_constants, predict_plane)
 from jsvx_torch.kernels.expand import expand_compact_gop
-from jsvx_torch.pipeline.gop import (FRAME_DECODERS, decode_gop_wire,
-                                     frame_at, zero_refs)
+from jsvx_torch.pipeline.gop import (FRAME_DECODERS, decode_gop,
+                                     decode_gop_wire, frame_at, zero_refs)
 from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
                                               parse_gop_packed, walk_stream)
 from jsvx_torch.pipeline.stream import StreamDecoder
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx_torch.pipeline.wire import flatten_wire, unflatten_wire, wire_spec
 from jsvx_torch.runtime.profiler import Metrics
+from jsvx_torch.shard import (build_mesh, decode_gop_rows_sharded,
+                              decode_gops_2d_sharded, decode_gops_parallel,
+                              gather_row_halo, gather_rows, slice_rows)
+from jsvx_torch.shard.launch import run_ranks
 from jsvx_torch.tools import (EncoderConfig, JsvEncoder,
                               decode_stream_oracle, psnr)
 from jsvx_torch.tools.fixture import ensure_fixture, zoom_clip
 from jsvx_torch.tools.refmath import ycbcr_to_rgb as ref_rgb
+from jsvx_torch.tools.synthetic import synthetic_gop
 
 KERNEL_SOURCE = "jsvx_torch/csrc/fused_decode.cu"
 KERNEL_REPLACES = "jsvx/kernels/pallas_fused.py:51"
@@ -1223,6 +1246,386 @@ def stream_decoder_times(data: bytes, dev, card: str) -> None:
                   "frames stay on the card")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: row-band and GOP sharding
+
+#: ranks of the gloo world (all on one card) and repetitions of its timings
+SHARD_RANKS = 4
+SHARD_REPS = 5
+#: the worlds the rank phase starts: the ranks share this card under gloo;
+#: NCCL needs a card per rank, so it runs one
+SHARD_WORLDS = (("gloo", SHARD_RANKS), ("nccl", 1))
+SHARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "jsvx_torch", "shard")
+
+
+def gop_batch(gops: list) -> dict:
+    """Stacked GOPs (dicts of tensors) -> one batch on a leading GOP
+    axis."""
+    return {k: ({f: torch.stack([g[k][f] for g in gops]) for f in v}
+                if isinstance(v, dict) else torch.stack([g[k] for g in gops]))
+            for k, v in gops[0].items()}
+
+
+def plain_gop(dense: dict, refs: tuple, consts) -> list:
+    """A GOP decoded by the kernels' plain versions (torch ops, no kernel
+    launch) on the tensors' device: (Y, Cb, Cr[, A]) stacks, frames
+    leading."""
+    frames = []
+    for i in range(int(dense["is_p"].shape[0])):
+        refs = decode_frame_planes(frame_at(dense, i), refs, consts)
+        frames.append(refs)
+    return [torch.stack(p) for p in zip(*frames)]
+
+
+def shard_inputs(data: bytes, dev) -> tuple:
+    """Both GOPs of the 1080p fixture on the card as the decode takes them
+    (compact wire, expanded), their constants, a maker of zero reference
+    planes, and each GOP's plain decode (:func:`plain_gop`)."""
+    meta, seq, _, _, _, d0 = gop_on_card(data, 0, dev)
+    d1 = gop_on_card(data, 1, dev)[5]
+    consts = make_constants(seq, dev)
+
+    def zr():
+        return zero_refs(seq.coded_height, seq.coded_width,
+                         meta.n_components, dev)
+
+    refs = [plain_gop(d, zr(), consts) for d in (d0, d1)]
+    return seq, consts, [d0, d1], zr, refs
+
+
+def differing(planes, want) -> int:
+    return sum(int((p != w).sum()) for p, w in zip(planes, want, strict=True))
+
+
+def shard_rank(rank: int, world: int, fixture: str, device: str) -> None:
+    """One rank of the shard phase, on ``device`` (started by
+    ``jsvx_torch.shard.launch.run_ranks``; gloo when ranks share the
+    card).  Each decode runs with the launch counts set to 0 just before
+    it and read just after: the fixture's GOP 0 in ``world`` row bands;
+    both GOPs on a (gop, rows) mesh, in bands and through
+    ``decode_gops_parallel``; the synthetic f_code 6 GOP (its halo reaches
+    a four-way band's height: the all-gather), each held against the
+    plain decode (:func:`plain_gop`); then ``gather_row_halo``'s window,
+    the exchange per plane (host clock) and the banded GOP's wall time.
+    Prints one JSON line."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with open(fixture, "rb") as f:
+        data = f.read()
+    n_gop = 2 if world % 2 == 0 else 1
+    mesh_rows = build_mesh({"rows": world})
+    mesh_2d = build_mesh({"gop": n_gop, "rows": world // n_gop})
+    seq, consts, gops, zr, refs = shard_inputs(data, dev)
+    n_f = int(gops[0]["is_p"].shape[0])
+    halo_y = slice_rows.derive_halo_y(gops[0])
+    out = {"rank": rank, "world": world, "backend": str(dist.get_backend()),
+           "halo_y": halo_y}
+
+    (bands, _), n = counted(lambda: decode_gop_rows_sharded(
+        gops[0], zr(), consts, mesh_rows, device=dev))
+    whole = [gather_rows(b, mesh_rows) for b in bands]
+    out["rows"] = dict(launches=n, frames=n_f,
+                       band_shape=list(bands[0].shape[1:]),
+                       mismatching_pixels=differing(whole, refs[0]))
+
+    batch = gop_batch(gops)
+    init = tuple(torch.stack([r, r]) for r in zr())
+    (o2, _, g2), n = counted(lambda: decode_gops_2d_sharded(
+        batch, init, consts, mesh_2d, device=dev))
+    out["gops_2d"] = dict(
+        gops=list(g2), launches=n, frames=n_f * len(g2),
+        mismatching_pixels=sum(differing(
+            [gather_rows(o[j], mesh_2d) for o in o2], refs[g])
+            for j, g in enumerate(g2)))
+    (op, _, gp), n = counted(lambda: decode_gops_parallel(
+        batch, seq.coded_height, seq.coded_width, consts, mesh_2d,
+        device=dev))
+    out["gop_parallel"] = dict(
+        gops=list(gp), launches=n, frames=n_f * len(gp),
+        mismatching_pixels=sum(differing([o[j] for o in op], refs[g])
+                               for j, g in enumerate(gp)))
+
+    syn = synthetic_gop(max_mv=200, seed=60)
+    sc = make_constants(None, dev)
+    szr = zero_refs(1088, 1920, 3, dev)
+    (sb, _), n = counted(lambda: decode_gop_rows_sharded(
+        syn, szr, sc, mesh_rows, device=dev))
+    want = plain_gop(slice_rows.cut_band(syn, 0, 1, dev), szr, sc)
+    syn_halo = slice_rows.derive_halo_y(syn)
+    out["all_gather"] = dict(
+        halo_y=syn_halo, band_rows=int(sb[0].shape[1]),
+        all_gather=syn_halo >= sb[0].shape[1], launches=n,
+        frames=int(syn["is_p"].shape[0]),
+        mismatching_pixels=differing([gather_rows(b, mesh_rows)
+                                      for b in sb], want))
+
+    plane = bands[0][-1]
+    h_local = plane.shape[0]
+    win = gather_row_halo(plane, 64, mesh_rows)
+    out["gather_window_mismatching_pixels"] = int((win != slice_rows
+        .edge_window(whole[0][-1], mesh_rows.index("rows") * h_local,
+                     h_local, 64)).sum())
+
+    ex = []
+    for b, halo in zip(bands, slice_rows.plane_halos(gops[0], halo_y)):
+        ts = []
+        for _ in range(4 * SHARD_REPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            slice_rows.extend_band(b[-1], halo, mesh_rows)
+            sync(dev)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ex.append(statistics.median(ts))
+    out["exchange_ms_per_plane"] = ex
+    walls = []
+    for _ in range(SHARD_REPS):
+        dist.barrier()
+        sync(dev)
+        t0 = time.perf_counter()
+        decode_gop_rows_sharded(gops[0], zr(), consts, mesh_rows, device=dev)
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+    out["rows_gop_wall_s"] = walls
+    print(json.dumps(out), flush=True)
+
+
+def band_launches(dense: dict, decoded: list, halo_y: int, consts, dev,
+                  n: int = SHARD_RANKS) -> tuple:
+    """The MC and reconstruction launches of the P picture (frame 1) of a
+    GOP, for the whole picture and for ``n`` row bands, each band's
+    extended planes (``halo_y`` luma rows each side) cut from frame 0 of
+    ``decoded`` (what the exchange or the all-gather gives).  Runs each once, then holds every band's
+    prediction and planes against the kernels' plain versions on the same
+    card tensors (``predict_plane`` over the extended plane cast to int16,
+    ``recon_plane_blocks`` on the band), and the bands against the whole
+    picture's launch and the whole picture against frame 1 of ``decoded``
+    (a plain decode): 0 differing pixels.  Returns (the launches by name,
+    the check's row, the max |kernel - plain| of each kernel)."""
+    frame = frame_at(dense, 1)
+    refs = tuple(p[0] for p in decoded)
+    preds = tuple(torch.empty(r.shape, dtype=torch.int16, device=dev)
+                  for r in refs)
+    outs = tuple(torch.empty_like(r) for r in refs)
+    bands = []
+    for b in range(n):
+        bf = frame_at(slice_rows.cut_band(dense, b, n, dev), 1)
+        halos = slice_rows.plane_halos(bf, halo_y)
+        ext = tuple(slice_rows.edge_window(r, b * (r.shape[0] // n),
+                                           r.shape[0] // n, h)
+                    for r, h in zip(refs, halos))
+        ep = tuple(torch.empty(e.shape, dtype=torch.int16, device=dev)
+                   for e in ext)
+        pp = tuple(p[h:p.shape[0] - h] for p, h in zip(ep, halos))
+        bands.append(dict(
+            frame=bf, side=slice_rows.halo_sideband(bf, halo_y),
+            halos=halos, ext=ext, ep=ep, pp=pp,
+            bo=tuple(torch.empty(p.shape, dtype=torch.uint8, device=dev)
+                     for p in pp)))
+    fns = {
+        "mc_whole": lambda: mc.predict_picture_mc(frame, refs, outs=preds),
+        "mc_bands": lambda: [mc.predict_picture_mc(bd["side"], bd["ext"],
+                                                   outs=bd["ep"])
+                             for bd in bands],
+        "recon_whole": lambda: recon.recon_picture(
+            frame, preds, frame["is_p"], consts, outs=outs),
+        "recon_bands": lambda: [recon.recon_picture(
+            bd["frame"], bd["pp"], bd["frame"]["is_p"], consts,
+            outs=bd["bo"]) for bd in bands]}
+    for fn in fns.values():
+        fn()
+    sync(dev)
+    n_diff = {"mc_vs_plain": 0, "recon_vs_plain": 0}
+    err = {"mc": 0, "recon": 0}
+    for bd in bands:
+        bf = bd["frame"]
+        for c, key in enumerate(frame_comp_keys(bf)):
+            h = bd["halos"][c]
+            p = predict_plane(bd["ext"][c], bd["side"][key]["mv"],
+                              bd["side"][key]["rep_add"],
+                              comp_is_chroma(c)).to(torch.int16)
+            r = recon.recon_plane_blocks(bf[key], p[h:p.shape[0] - h],
+                                         bf["is_p"], consts)
+            for k, got, want in (("mc", bd["ep"][c], p),
+                                 ("recon", bd["bo"][c], r)):
+                n_diff[f"{k}_vs_plain"] += int((got != want).sum())
+                err[k] = max(err[k], int((got.int() - want.int())
+                                         .abs().max()))
+    n_diff.update(
+        prediction_vs_whole=sum(int((torch.cat([bd["pp"][c] for bd in bands])
+                                     != preds[c]).sum())
+                                for c in range(len(refs))),
+        planes_vs_whole=sum(int((torch.cat([bd["bo"][c] for bd in bands])
+                                 != outs[c]).sum())
+                            for c in range(len(refs))),
+        whole_vs_plain_gop_decode=differing(outs, tuple(p[1]
+                                                        for p in decoded)))
+    check(not any(n_diff.values()),
+          f"band launches differ from their plain versions or the whole "
+          f"picture's: {n_diff}")
+    row = dict(bands=n, halo_y=halo_y, frame=1, is_p=int(frame["is_p"]),
+               band_shapes=[list(p.shape) for p in bands[0]["pp"]],
+               extended_shapes=[list(e.shape) for e in bands[0]["ext"]],
+               all_gather=halo_y >= bands[0]["pp"][0].shape[0],
+               mismatching_pixels=n_diff, max_abs_err=err)
+    return fns, row, err
+
+
+def band_kernel_times(dense: dict, decoded: list, consts, dev, card: str,
+                      n: int = SHARD_RANKS) -> tuple:
+    """:func:`band_launches` on a GOP, then device time in turns (whole,
+    bands, bands, whole), warm and cold.  Returns (the timing row, the
+    max |kernel - plain| of each kernel)."""
+    fns, row, err = band_launches(dense, decoded,
+                                  slice_rows.derive_halo_y(dense), consts,
+                                  dev, n)
+    t = turns(fns, ["mc_whole", "mc_bands", "mc_bands", "mc_whole",
+                    "recon_whole", "recon_bands", "recon_bands",
+                    "recon_whole"], dev)
+    row.update(card=card, reps=2 * N_TIMED,
+               launches_per_band_and_picture={"mc": 1, "recon": 1})
+    for k in ("mc", "recon"):
+        whole, banded = t[f"{k}_whole"], t[f"{k}_bands"]
+        row[k] = dict(whole_ms=whole["ms"], whole_cold_ms=whole["cold_ms"],
+                      bands_ms=banded["ms"], bands_cold_ms=banded["cold_ms"],
+                      per_band_ms=banded["ms"] / n,
+                      per_band_cold_ms=banded["cold_ms"] / n,
+                      bands_over_whole=banded["ms"] / whole["ms"],
+                      whole_ms_runs=whole["ms_runs"],
+                      bands_ms_runs=banded["ms_runs"])
+    emit("shard_band_kernel_time", **row,
+         what="MC and reconstruction launches of one P picture: the whole "
+              "picture, against n bands launched one after another "
+              "(per_band_ms = bands_ms / n)")
+    return row, err
+
+
+def check_shard_rank(r: dict, backend: str, n_f: int) -> None:
+    """The checks of one rank's report: bit-equal everywhere, each kernel
+    launched once per picture on its route, no torch sideband
+    expansion."""
+    emit("shard_rank", **r)
+    check(r["backend"] == backend, f"rank {r['rank']}: backend "
+                                   f"{r['backend']}, expected {backend}")
+
+    def want(route, frames):
+        if route == "fused":
+            return {"fused": frames, "mc": 0, "recon": 0, "expansions": 0}
+        return {"fused": 0, "mc": frames, "recon": frames, "expansions": 0}
+
+    for key, route in (("rows", "two_kernel"), ("gops_2d", "two_kernel"),
+                       ("gop_parallel", "fused"), ("all_gather",
+                                                    "two_kernel")):
+        got = r[key]
+        check(got["frames"] > 0 and got["launches"] == want(
+            route, got["frames"]),
+              f"rank {r['rank']} {key}: launches {got['launches']} for "
+              f"{got['frames']} pictures")
+        check(got["mismatching_pixels"] == 0,
+              f"rank {r['rank']} {key}: {got['mismatching_pixels']} pixels "
+              f"differ from the plain decode")
+    check(r["rows"]["frames"] == n_f, f"rank {r['rank']}: frames")
+    check(r["gather_window_mismatching_pixels"] == 0,
+          f"rank {r['rank']}: gather_row_halo's window differs")
+    if r["world"] == SHARD_RANKS:
+        check(r["all_gather"]["all_gather"],
+              f"rank {r['rank']}: the synthetic GOP did not take the "
+              f"all-gather")
+
+
+def shard_phase(data: bytes, fix: str, dev, card: str) -> dict:
+    """Phase 6: a (gop 1, rows 1) mesh without a process group; the band
+    launches against their plain versions and the whole picture's, on the
+    fixture (timed) and on the synthetic f_code 6 GOP; SHARD_RANKS gloo
+    ranks on this card, then one NCCL rank (:func:`shard_rank`); the
+    one-process GOP wall time beside the banded one; ``bench_scaling``
+    with 2 processes on the card.  Returns the timings and the max
+    |kernel - plain| of the band launches."""
+    seq, consts, gops, zr, refs = shard_inputs(data, dev)
+    n_f = int(gops[0]["is_p"].shape[0])
+    check(not dist.is_initialized(), "a process group is initialised")
+    mesh1 = build_mesh({"gop": 1, "rows": 1})
+    (o1, _, g1), n = counted(lambda: decode_gops_2d_sharded(
+        gop_batch(gops), tuple(torch.stack([r, r]) for r in zr()), consts,
+        mesh1, device=dev))
+    d1 = sum(differing([o[j] for o in o1], refs[g]) for j, g in
+             enumerate(g1))
+    emit("shard_mesh_of_one", groups=[g is None for g in
+                                      mesh1.groups.values()],
+         gops=list(g1), launches=n, mismatching_pixels=d1)
+    check(n == {"fused": 0, "mc": 2 * n_f, "recon": 2 * n_f,
+                "expansions": 0} and d1 == 0,
+          f"1x1 mesh: launches {n}, {d1} pixels differ")
+
+    bands, err = band_kernel_times(gops[0], refs[0], consts, dev, card)
+    syn = synthetic_gop(max_mv=200, seed=60)
+    sc = make_constants(None, dev)
+    syn_dense = slice_rows.cut_band(syn, 0, 1, dev)
+    _, syn_row, syn_err = band_launches(
+        syn_dense, plain_gop(syn_dense, zero_refs(1088, 1920, 3, dev), sc),
+        slice_rows.derive_halo_y(syn), sc, dev)
+    emit("shard_band_vs_plain", stream="synthetic-f_code-6", **syn_row)
+    check(syn_row["all_gather"], "the synthetic GOP's halo does not reach "
+                                 "the band height")
+    err = {k: max(v, syn_err[k]) for k, v in err.items()}
+
+    walls = []
+    for _ in range(SHARD_REPS + 1):
+        sync(dev)
+        t0 = time.perf_counter()
+        decode_gop(gops[0], zr(), consts, impl="two_kernel")
+        sync(dev)
+        walls.append(time.perf_counter() - t0)
+    one_s = statistics.median(walls[1:])
+
+    reports = []
+    for backend, world in SHARD_WORLDS:
+        t0 = time.perf_counter()
+        outs = run_ranks("chip_smoke:shard_rank", world, SHARD_DIR, fix,
+                         str(dev), backend=backend, timeout_s=420,
+                         group_timeout_s=120)
+        reports.append([json.loads(o.strip().splitlines()[-1])
+                        for o in outs])
+        for r in reports[-1]:
+            check_shard_rank(r, backend, n_f)
+        emit("shard_world", backend=backend, ranks=world,
+             seconds=time.perf_counter() - t0)
+
+    gloo = reports[0]
+    rows_s = statistics.median([max(r["rows_gop_wall_s"][i] for r in gloo)
+                                for i in range(SHARD_REPS)])
+    exch = [statistics.median([r["exchange_ms_per_plane"][c] for r in gloo])
+            for c in range(len(gloo[0]["exchange_ms_per_plane"]))]
+    timing = dict(card=card, ranks=SHARD_RANKS, frames=n_f,
+                  halo_y=gloo[0]["halo_y"],
+                  rows_gop_wall_s=rows_s, one_process_gop_wall_s=one_s,
+                  rows_over_one_process=rows_s / one_s,
+                  exchange_ms_per_frame_and_plane=exch,
+                  exchange_ms_per_frame=sum(exch),
+                  exchange_ms_per_plane_by_rank=[
+                      r["exchange_ms_per_plane"] for r in gloo],
+                  nccl_rows_gop_wall_s=statistics.median(
+                      reports[1][0]["rows_gop_wall_s"]),
+                  reps=SHARD_REPS)
+    emit("shard_time", **timing,
+         what="host clock: the fixture's GOP 0 in 4 gloo ranks on one card "
+              "(the slowest rank per repetition, median) against one "
+              "process's two-kernel decode; each exchange_row_halo of a "
+              "band's last frame, synchronised on both sides, median over "
+              "reps and ranks")
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "jsvx_torch.tools.bench_scaling", "2", fix,
+         "--device", str(dev)], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"bench_scaling exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    scaling = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("bench_scaling", card=card, **scaling)
+    return dict(bands=bands, timing=timing, scaling=scaling, max_abs_err=err)
+
+
 def smoke(dev: torch.device) -> None:
     t_start = time.perf_counter()
 
@@ -1389,6 +1792,11 @@ def smoke(dev: torch.device) -> None:
     decoder_view_copies(data_1080, dev, card)
     player_rate(data_1080, dev, card)
     colour_time(data_1080, dev, card)
+
+    # ---- 6. row-band and GOP sharding ---------------------------------------
+    shard = shard_phase(data_1080, fix, dev, card)
+    worst = {k: max(v, shard["max_abs_err"].get(k, 0))
+             for k, v in worst.items()}
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jsvx", "bench")]

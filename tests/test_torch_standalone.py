@@ -101,6 +101,10 @@ def test_ast_scan_finds_no_jsvx_bench_or_jax_import():
                                               & set(FORBIDDEN))
              for p in _sources()}
     assert len(found) > 40
+    for path in ("shard/__init__.py", "shard/mesh.py", "shard/slice_rows.py",
+                 "shard/gop_parallel.py", "shard/launch.py",
+                 "tools/synthetic.py", "tools/bench_scaling.py"):
+        assert os.path.join("jsvx_torch", path) in found, path
     assert not {p: r for p, r in found.items() if r}
 
 
@@ -129,6 +133,11 @@ names = [m.name for m in pkgutil.walk_packages(jsvx_torch.__path__,
                                                "jsvx_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("jsvx_torch.shard", "jsvx_torch.shard.mesh",
+             "jsvx_torch.shard.slice_rows", "jsvx_torch.shard.gop_parallel",
+             "jsvx_torch.shard.launch", "jsvx_torch.tools.synthetic",
+             "jsvx_torch.tools.bench_scaling"):
+    assert name in names, name
 import chip_smoke
 
 from jsvx_torch import StreamDecoder, transcode
@@ -163,7 +172,16 @@ while not p.ended and t < 2.0:
     t += 1 / 30.0
     p.tick(t)
 assert p.ended and shown == [(32, 48, 3)] * 4, shown
-blocked = [m for m in sys.modules if m.split(".")[0] in ("jsvx", "bench",
+from jsvx_torch.kernels.decode import make_constants
+from jsvx_torch.pipeline.gop import zero_refs
+from jsvx_torch.shard import build_mesh, decode_gop_rows_sharded
+from jsvx_torch.tools.synthetic import synthetic_gop
+gop = synthetic_gop(2, 2, 3, max_mv=6)
+consts = make_constants(None, "cpu")
+bands, _ = decode_gop_rows_sharded(gop, zero_refs(32, 48, 3, "cpu"), consts,
+                                   build_mesh({"rows": 1}), device="cpu")
+assert bands[0].shape == (2, 32, 48), bands[0].shape
+blocked =[m for m in sys.modules if m.split(".")[0] in ("jsvx", "bench",
                                                          "jax")]
 assert not blocked, blocked
 print("ok", len(names))
@@ -492,17 +510,60 @@ def test_player_events_equal_jsvx(streams, name, backend, rgb):
     ("bitstream.ranges", "RangeBuffer"), ("runtime.source", "MemorySource"),
     ("runtime.profiler", "Metrics"), ("utils.events", "EventDispatcher"),
     ("bitstream.container", "ContainerMeta"),
-    ("bitstream.parser", "SequenceInfo")], ids=lambda p: p[0])
+    ("bitstream.parser", "SequenceInfo"),
+    ("runtime.multihost", "initialize"), ("shard.mesh", "build_mesh"),
+    ("shard.slice_rows", "decode_gop_rows_sharded")], ids=lambda p: p[0])
 def test_copied_modules_keep_jsvx_public_names(pair):
-    """Each copied module defines the names its jsvx original does (the
-    manifest's ``initialize`` and the profiler's JAX trace aside)."""
+    """Each copied or ported module defines the names its jsvx original
+    does: apart from the modules it imports and JAX's own objects (a JAX
+    ``Mesh``, ``PartitionSpec``), which the port has no use for, the
+    profiler's JAX trace, and the whole-plane decode that only jsvx's
+    ``mc_impl="gather"`` band route calls (the port's one band route is
+    the two kernels)."""
     mod, cls = pair
     j = importlib.import_module(f"jsvx.{mod}")
     t = importlib.import_module(f"jsvx_torch.{mod}")
-    names = {k for k in vars(j) if not k.startswith("_")}
-    names -= {"initialize", "device_trace"}
-    assert names <= set(vars(t))
+    names = {k for k, v in vars(j).items() if not k.startswith("_")
+             and not isinstance(v, type(os))
+             and not str(getattr(v, "__module__", "")).startswith("jax")}
+    names -= {"device_trace"}
+    if mod == "shard.slice_rows":
+        names -= {"decode_frame_plane"}
+    assert names <= set(vars(t)), names - set(vars(t))
     assert getattr(t, cls).__module__ == f"jsvx_torch.{mod}"
+
+
+def test_synthetic_inputs_equal_graft_entry():
+    """``tools/synthetic.py`` draws what ``__graft_entry__`` draws, field
+    by field, for the fields it keeps (jsvx's vector table dropped)."""
+    from __graft_entry__ import _synthetic_frame_inputs
+
+    from jsvx_torch.tools.synthetic import (synthetic_frame_inputs,
+                                            synthetic_gop)
+
+    for args, kw in (((68, 120, True), dict(seed=60, max_mv=200,
+                                            mv_capacity=8)),
+                     ((68, 120, False), dict(seed=40)),
+                     ((3, 5, True), dict(seed=2))):
+        want = _synthetic_frame_inputs(*args, **kw)
+        got = synthetic_frame_inputs(*args, **kw)
+        assert set(want) - set(got) == {"mv_table", "mv_count"}
+        assert set(got) == {"y", "cb", "cr", "is_p", "f_code"}
+        for k in ("is_p", "f_code"):
+            _same_value(want[k], got[k], k)
+        for key in ("y", "cb", "cr"):
+            assert set(want[key]) - set(got[key]) == {"mv_idx"}
+            for f, a in got[key].items():
+                _same_value(want[key][f], a, f"{key}.{f}")
+        assert np.array_equal(want["mv_table"][want["y"]["mv_idx"]],
+                              got["y"]["mv"])
+    gop = synthetic_gop(max_mv=200, seed=60)
+    assert gop["y"]["levels"].shape == (2, 1088, 1920)
+    assert int(gop["f_code"].max()) >= 6
+    for i in range(2):
+        _same_value(_synthetic_frame_inputs(
+            68, 120, i > 0, seed=60 + i, max_mv=200, mv_capacity=8)["cb"][
+            "levels"], gop["cb"]["levels"][i], "gop")
 
 
 # ---------------------------------------------------------------------------
