@@ -61,7 +61,22 @@ each printing its own lines:
    through the all-gather, each bit-equal to the plain decode, the
    exchange per plane and the banded GOP's wall time (host clock); the
    same in one NCCL rank; ``tools/bench_scaling.py`` with two processes
-   on the card.
+   on the card;
+7. the pipelined ``transcode`` (parse of GOP g+1 while GOP g decodes, the
+   wire copied from pinned memory on a copy stream, delivery one GOP
+   behind), each route, the quirk, the dirty stream and the fixture's
+   GOPs repeated to 8: bit-equal to the CPU and to ``StreamDecoder`` on
+   the card, one launch per picture per kernel, the sink's planes kept on
+   the card and intact after the run, every pooled buffer pinned, no
+   sync warning (``torch.cuda.set_sync_debug_mode``) after GOP 0's
+   dispatch outside the deliberate waits, the stage split per GOP; its
+   frames/s with a sink that keeps the planes and one that copies them;
+   ``probe_expand``'s gauge beside phase 5's expansion time; ``python -m
+   jsvx_torch bench --trace`` (both routes), whose traces name the three
+   kernels; ``warm --shape 1920x1088``; ``tools/bench_mc.py`` (the MC
+   kernel against its plain version at up to 300 distinct vectors); the
+   fixture truncated and bit-flipped through the Decoder and
+   ``transcode``, the card's outcome and frames equal to the CPU's.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
@@ -79,6 +94,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -86,12 +102,16 @@ import torch
 import torch.distributed as dist
 
 from jsvx_torch.api import Decoder, Player, PlayerConfig
+from jsvx_torch.bitstream.bitio import BitReader
+from jsvx_torch.bitstream.container import parse_container_header
+from jsvx_torch.coding.tables import START_SEQUENCE
 from jsvx_torch.kernels import build, fused, mc, recon
 from jsvx_torch.kernels.color import ycbcr_to_rgb
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
                                        decode_frame_planes, frame_comp_keys,
                                        make_constants, predict_plane)
 from jsvx_torch.kernels.expand import expand_compact_gop
+from jsvx_torch.pipeline import packed_parse
 from jsvx_torch.pipeline.gop import (FRAME_DECODERS, decode_gop,
                                      decode_gop_wire, frame_at, zero_refs)
 from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
@@ -99,12 +119,12 @@ from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
 from jsvx_torch.pipeline.stream import StreamDecoder
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx_torch.pipeline.wire import flatten_wire, unflatten_wire, wire_spec
-from jsvx_torch.runtime.profiler import Metrics
+from jsvx_torch.runtime.profiler import TRACE_FILE, Metrics, StageTimer
 from jsvx_torch.shard import (build_mesh, decode_gop_rows_sharded,
                               decode_gops_2d_sharded, decode_gops_parallel,
                               gather_row_halo, gather_rows, slice_rows)
 from jsvx_torch.shard.launch import run_ranks
-from jsvx_torch.tools import (EncoderConfig, JsvEncoder,
+from jsvx_torch.tools import (EncoderConfig, JsvEncoder, bench_mc,
                               decode_stream_oracle, psnr)
 from jsvx_torch.tools.fixture import ensure_fixture, zoom_clip
 from jsvx_torch.tools.refmath import ycbcr_to_rgb as ref_rgb
@@ -1626,6 +1646,383 @@ def shard_phase(data: bytes, fix: str, dev, card: str) -> dict:
     return dict(bands=bands, timing=timing, scaling=scaling, max_abs_err=err)
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the pipelined transcode, the tools and damaged input
+
+#: GOPs of the long stream (the fixture's two, repeated)
+LONG_GOPS = 8
+#: the shape of ``python -m jsvx_torch warm --shape``
+WARM_SHAPE = "1920x1088"
+#: bit-flipped copies of the fixture (4 flips each, as test_corrupt_streams)
+N_FLIPPED = 6
+#: the kernels' symbols a ``bench --trace`` must name
+KERNEL_SYMBOLS = ("fused_decode_picture_kernel", "mc_picture_kernel",
+                  "recon_picture_kernel")
+#: the stages in which the host waits on purpose (an event's synchronise)
+WAIT_STAGES = ("wire_wait", "device_wait")
+#: where the bench subprocesses write their traces
+TRACE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "jsvx_torch", "trace")
+
+
+def long_stream(data: bytes, copies: int) -> bytes:
+    """``data`` with its GOPs repeated ``copies`` times: the container
+    header once, then the elementary stream (each GOP opens with a
+    sequence header) over and over.  GOP g decodes as GOP g mod (the GOPs
+    of ``data``)."""
+    meta = parse_container_header(BitReader(data))
+    body = data[meta.header_bytes:]
+    check(body[:4] == b"\x00\x00\x01" + bytes([START_SEQUENCE]),
+          "no sequence header after the container header")
+    return data + body * (copies - 1)
+
+
+class StageWatch(StageTimer):
+    """A stage timer that notes which of the warnings in ``caught`` each
+    stage raised: ``spans`` holds (stage, first warning, past the last),
+    ``gop0_end`` the count of warnings when GOP 0's dispatch ended."""
+
+    def __init__(self, caught: list):
+        super().__init__()
+        self.caught = caught
+        self.spans: list = []
+        self.gop0_end = None
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        n0 = len(self.caught)
+        with super().stage(name):
+            yield
+        self.spans.append((name, n0, len(self.caught)))
+        if name == "device_dispatch" and self.gop0_end is None:
+            self.gop0_end = len(self.caught)
+
+
+@contextlib.contextmanager
+def pinned_buffers(record: list):
+    """Record, for every buffer a ``BufferPool`` hands out, whether it is
+    page-locked."""
+    real = packed_parse.BufferPool.acquire
+
+    def acquire(self, shape, dtype):
+        arr = real(self, shape, dtype)
+        record.append(bool(torch.from_numpy(arr).is_pinned()))
+        return arr
+
+    packed_parse.BufferPool.acquire = acquire
+    try:
+        yield
+    finally:
+        packed_parse.BufferPool.acquire = real
+
+
+def watched_transcode(data: bytes, dev, impl: str = "fused",
+                      quirk: bool = False) -> dict:
+    """One ``transcode`` with CUDA's sync debug mode on ("warn"), each
+    warning placed in its stage; a sink that keeps each GOP's planes on
+    the card as given; the launches counted; the pooled buffers' pinning
+    recorded."""
+    kept, pins = {}, []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        timer = StageWatch(caught)
+        if dev.type == "cuda":
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with pinned_buffers(pins):
+                res, n = counted(lambda: transcode(
+                    data, lambda gi, outs: kept.__setitem__(gi, outs),
+                    device=dev, impl=impl, quirk_oddify_zeros=quirk,
+                    metrics=Metrics(timers=timer)))
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    after = set(range(timer.gop0_end or 0, len(caught)))
+    in_waits = set()
+    for name, a, b in timer.spans:
+        if name in WAIT_STAGES:
+            in_waits |= set(range(a, b))
+    by_stage: dict = {}
+    for name, a, b in timer.spans:
+        if b > a:
+            by_stage[name] = by_stage.get(name, 0) + b - a
+    ptrs = [o.data_ptr() for outs in kept.values() for o in outs]
+    frames = [tuple(s[i].cpu().numpy() for s in kept[g]) for g in sorted(kept)
+              for i in range(kept[g][0].shape[0])]
+    return dict(res=res, launches=n, frames=frames, pins=pins,
+                warnings=len(caught), warnings_by_stage=by_stage,
+                after_gop0_outside_waits=len(after - in_waits),
+                after_gop0_in_waits=len(after & in_waits),
+                distinct_planes=len(set(ptrs)) == len(ptrs),
+                stages=timer.report(), gops=sorted(kept))
+
+
+def check_pipelined(label: str, data: bytes, dev, impl: str, quirk: bool,
+                    want: list, card: str) -> dict:
+    """The pipelined ``transcode`` on the card against ``want`` (the CPU's
+    planes) and against ``StreamDecoder`` on the card: 0 differing pixels,
+    the planes the sink kept still equal after the run, the launches of the
+    route once per picture, every pooled buffer pinned, no sync warning
+    after GOP 0's dispatch outside the deliberate waits; its stage split
+    per GOP."""
+    w = watched_transcode(data, dev, impl, quirk)
+    res, n = w["res"], w["launches"]
+    n_f = res.n_frames
+    stream = stream_frames_quirk(data, dev, impl, quirk)
+    d_cpu = mismatching_pixels(w["frames"], want)
+    d_stream = mismatching_pixels(w["frames"], stream)
+    expected = ({"fused": n_f, "mc": 0, "recon": 0, "expansions": 0}
+                if impl == "fused" else
+                {"fused": 0, "mc": n_f, "recon": n_f, "expansions": 0})
+    per_gop = {k: v["total_s"] / res.n_gops for k, v in w["stages"].items()}
+    emit("pipelined_transcode", stream=label, impl=impl, quirk=quirk,
+         card=card, frames=n_f, gops=res.n_gops, launches=n,
+         expected_launches=expected, vs_cpu_mismatching_pixels=d_cpu,
+         vs_stream_decoder_mismatching_pixels=d_stream,
+         sink_planes_distinct=w["distinct_planes"],
+         pooled_buffers=len(w["pins"]), pinned=sum(w["pins"]),
+         sync_warnings=w["warnings"],
+         sync_warnings_by_stage=w["warnings_by_stage"],
+         sync_warnings_after_gop0_outside_waits=w[
+             "after_gop0_outside_waits"],
+         sync_warnings_after_gop0_in_waits=w["after_gop0_in_waits"],
+         stage_s_per_gop=per_gop,
+         stage_counts={k: v["count"] for k, v in w["stages"].items()})
+    check(d_cpu == 0 and d_stream == 0 and len(w["frames"]) == n_f > 0,
+          f"{label} {impl}: {d_cpu} pixels differ from the CPU, {d_stream} "
+          f"from StreamDecoder")
+    check(n == expected, f"{label} {impl}: launches {n}")
+    check(w["distinct_planes"], f"{label}: a sink plane was reused")
+    if dev.type == "cuda":
+        check(w["pins"] and all(w["pins"]),
+              f"{label}: {w['pins'].count(False)} pooled buffers unpinned")
+    check(w["after_gop0_outside_waits"] == 0,
+          f"{label} {impl}: {w['after_gop0_outside_waits']} sync warnings "
+          f"after GOP 0's dispatch: {w['warnings_by_stage']}")
+    return w
+
+
+def stream_frames_quirk(data: bytes, device, impl: str, quirk: bool) -> list:
+    res = StreamDecoder(data, quirk, device=device).decode(impl=impl)
+    return [tuple(p.cpu().numpy() for p in f) for f in res.frames]
+
+
+def transcode_rate(data: bytes, dev, keep: bool, card: str,
+                   gop_dev_ms: float, label: str) -> dict:
+    """``transcode`` end to end (host clock, median of N_E2E after a
+    warm-up) with a sink that keeps the planes on the card or copies them
+    to the host; the stage split per GOP and the device idle share (the
+    resident GOP decode's device time, once per GOP, against the run)."""
+    def sink(gi, outs):
+        return outs if keep else [o.cpu() for o in outs]
+
+    m, wall = Metrics(), []
+    for rep in range(N_E2E + 1):
+        mm = Metrics() if rep == 0 else m  # rep 0 is the warm-up
+        sync(dev)
+        t0 = time.perf_counter()
+        r = transcode(data, sink, device=dev, metrics=mm)
+        sync(dev)
+        if rep:
+            wall.append(time.perf_counter() - t0)
+    med = statistics.median(wall)
+    out = dict(card=card, stream=label, sink="keep on card" if keep
+               else "copy to host", frames=r.n_frames, gops=r.n_gops,
+               median_s=med, frames_per_s=r.n_frames / med,
+               wall_s_runs=[min(wall), max(wall)], reps=N_E2E,
+               stage_s_per_gop={k: v / N_E2E / r.n_gops
+                                for k, v in m.timers.totals.items()},
+               device_idle_share=1 - r.n_gops * gop_dev_ms * 1e-3 / med,
+               wire_bytes_per_run=m.gauges["wire_bytes"])
+    emit("pipelined_end_to_end", **out)
+    return out
+
+
+def trace_symbols(path: str, dev, impl: str) -> dict:
+    """``python -m jsvx_torch bench PATH --trace DIR --impl IMPL`` in a
+    subprocess: its report and the kernel symbols its trace names."""
+    trace_dir = os.path.join(TRACE_DIR, impl)
+    proc = subprocess.run(
+        [sys.executable, "-m", "jsvx_torch", "bench", path, "--trace",
+         trace_dir, "--impl", impl, "--device", str(dev)],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"bench exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    out = proc.stdout
+    report = json.loads(out[out.index("{"):])
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    found = {s: sum(s in nm for nm in names) for s in KERNEL_SYMBOLS}
+    return dict(report=report, found=found, events=len(names))
+
+
+def damaged_inputs(data: bytes) -> list:
+    """(label, bytes, total) of test_corrupt_streams' damage on ``data``:
+    three truncations fed with the true total, one that is the whole
+    stream, and N_FLIPPED copies with 4 flipped bits each past the
+    container header."""
+    out = [(f"truncated_{c}", data[:c], len(data))
+           for c in (len(data) // 3, len(data) // 2, len(data) - 5)]
+    cut = int(len(data) * 0.7)
+    out.append((f"truncated_final_{cut}", data[:cut], cut))
+    rng = np.random.default_rng(42)
+    for trial in range(N_FLIPPED):
+        buf = bytearray(data)
+        for _ in range(4):
+            pos = int(rng.integers(60, len(buf)))
+            buf[pos] ^= 1 << int(rng.integers(0, 8))
+        out.append((f"bit_flips_{trial}", bytes(buf), len(buf)))
+    return out
+
+
+def decoder_outcome(data: bytes, total: int, device) -> tuple:
+    """The Decoder (GOP batch) fed ``data`` with ``total`` declared,
+    decoded until it stalls, ends or raises: (frames, stalls, error)."""
+    d = Decoder(PlayerConfig(), device=device)
+    stalls, frames = [], []
+    d.on("stalled", stalls.append)
+    try:
+        d.feed(0, data, total=total)
+        for _ in range(100):
+            f = d.decode_frame()
+            if f is None:
+                break
+            frames.append(tuple(p.cpu().numpy() for p in f.planes))
+    except ValueError as e:
+        return frames, stalls, type(e).__name__
+    return frames, stalls, None
+
+
+def transcode_outcome(data: bytes, device, impl: str) -> tuple:
+    """``transcode`` of ``data``: (GOPs delivered, frames, error)."""
+    got = {}
+    try:
+        transcode(data, lambda gi, outs: got.__setitem__(
+            gi, [o.cpu() for o in outs]), device=device, impl=impl)
+        err = None
+    except ValueError as e:
+        err = type(e).__name__
+    frames = [tuple(s[i].numpy() for s in got[g]) for g in sorted(got)
+              for i in range(got[g][0].shape[0])]
+    return sorted(got), frames, err
+
+
+def check_damaged(data: bytes, dev, card: str) -> dict:
+    """Each damaged input through the Decoder and through ``transcode``
+    (both routes) on the card and on the CPU: the same outcome, the same
+    stalls or GOPs delivered, and the card's frames equal to the CPU's."""
+    totals = dict(inputs=0, frames_on_card=0, errors=0)
+    cpu = torch.device("cpu")
+    for label, bad, total in damaged_inputs(data):
+        (fd, sd, ed), n = counted(lambda: decoder_outcome(bad, total, dev))
+        fc, sc, ec = decoder_outcome(bad, total, cpu)
+        d_dec = mismatching_pixels(fd, fc) if fd or fc else 0
+        row = dict(input=label, bytes=len(bad), decoder_frames=len(fd),
+                   decoder_stalls=len(sd), decoder_error=ed,
+                   decoder_launches=n["fused"],
+                   decoder_vs_cpu_mismatching_pixels=d_dec)
+        check(sd == sc and ed == ec and len(fd) == len(fc) and d_dec == 0,
+              f"{label}: the Decoder on the card ({len(fd)} frames, "
+              f"{ed}) differs from the CPU ({len(fc)} frames, {ec})")
+        # the CPU's two routes agree bit for bit (tests/test_torch_*.py)
+        want = transcode_outcome(bad, cpu, "fused")
+        for impl in ("fused", "two_kernel"):
+            gd, ft, et = transcode_outcome(bad, dev, impl)
+            d_tr = mismatching_pixels(ft, want[1]) if ft or want[1] else 0
+            row[f"transcode_{impl}"] = dict(gops=gd, frames=len(ft),
+                                            error=et,
+                                            vs_cpu_mismatching_pixels=d_tr)
+            check(gd == want[0] and et == want[2] and d_tr == 0,
+                  f"{label} transcode {impl}: GOPs {gd} {et} on the card, "
+                  f"{want[0]} {want[2]} on the CPU, {d_tr} pixels differ")
+            totals["frames_on_card"] += len(ft)
+        totals["inputs"] += 1
+        totals["frames_on_card"] += len(fd)
+        totals["errors"] += (ed is not None) + (row["transcode_fused"]
+                                                ["error"] is not None)
+        emit("damaged_input", card=card, **row)
+    return totals
+
+
+def pipeline_phase(data: bytes, fix: str, dev, card: str, cpu_frames: list,
+                   gop_dev_ms: float, expand_dev_ms: float) -> dict:
+    """Phase 7.  ``cpu_frames`` is the fixture's transcode on the CPU,
+    ``gop_dev_ms`` the device time of its resident GOP decode and
+    ``expand_dev_ms`` that of its expansion (phase 5)."""
+    n_gops = len(walk_stream(data)[2])
+    dirty = dirty_stream()
+    dirty_cpu = collect(dirty, torch.device("cpu"))[0]
+    for impl in ("fused", "two_kernel"):
+        check_pipelined("1080p", data, dev, impl, False, cpu_frames, card)
+        check_pipelined("48x64-dirty", dirty, dev, impl, False, dirty_cpu,
+                        card)
+    quirk_cpu = collect(data, torch.device("cpu"), "two_kernel",
+                        quirk=True)[0]
+    for impl in ("fused", "two_kernel"):
+        check_pipelined("1080p-quirk", data, dev, impl, True, quirk_cpu,
+                        card)
+    longer = long_stream(data, LONG_GOPS // n_gops)
+    long_cpu = cpu_frames * (LONG_GOPS // n_gops)
+    for impl in ("fused", "two_kernel"):
+        w = check_pipelined(f"1080p-{LONG_GOPS}-gops", longer, dev, impl,
+                            False, long_cpu, card)
+        check(w["res"].n_gops == LONG_GOPS, f"{w['res'].n_gops} GOPs")
+
+    rates = [transcode_rate(d, dev, keep, card, gop_dev_ms, label)
+             for d, label in ((data, "1080p"),
+                              (longer, f"1080p-{LONG_GOPS}-gops"))
+             for keep in (True, False)]
+
+    probe = transcode(data, device=dev, probe_expand=True)
+    gauge = probe.metrics.gauges["expand_probe_s_per_gop"]
+    emit("expand_probe", card=card, expand_probe_s_per_gop=gauge,
+         expand_probe_compile_s=probe.metrics.timers.totals[
+             "expand_probe_compile"],
+         cuda_event_expand_ms=expand_dev_ms,
+         probe_over_events=gauge * 1e3 / expand_dev_ms,
+         what="probe: host clock around unflatten + expand + synchronise, "
+              "best of 3; events: device time per expansion, median of "
+              f"{N_TIMED} (phase 5)")
+
+    traces = {impl: trace_symbols(fix, dev, impl)
+              for impl in ("fused", "two_kernel")}
+    found = {s: sum(t["found"][s] for t in traces.values())
+             for s in KERNEL_SYMBOLS}
+    emit("bench_trace", card=card, symbols_found=found,
+         fps_end_to_end={i: t["report"]["fps_end_to_end"]
+                         for i, t in traces.items()},
+         trace_events={i: t["events"] for i, t in traces.items()})
+    if dev.type == "cuda":
+        check(all(found.values()), f"the traces name {found}")
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "jsvx_torch", "warm", "--shape", WARM_SHAPE,
+         "--device", str(dev)], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"warm exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    warm = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit("warm", card=card, **warm)
+    check(warm["frames"] > 0 and (warm["kernels"] is not None)
+          == (dev.type == "cuda"), f"warm: {warm}")
+
+    w, h = (int(x) for x in WARM_SHAPE.split("x"))
+    mc_rows = bench_mc.rows(dev, h, w)
+    emit("bench_mc", card=card, plane=f"{w}x{h} luma", rows=mc_rows,
+         what="device time per call: 30 calls queued behind a spin "
+              "kernel, CUDA events around them (host_hidden: the host "
+              "finished enqueueing before the spin ended)")
+    bad = [r for r in mc_rows if r.get("mismatching_pixels")]
+    check(not bad and all(r["distinct"] == r["k"] for r in mc_rows),
+          f"bench_mc: the MC kernel differs from its plain version: {bad}")
+
+    damaged = check_damaged(data, dev, card)
+    emit("damaged_inputs", card=card, **damaged)
+    return dict(rates=rates, probe_s=gauge, mc_rows=mc_rows,
+                damaged=damaged)
+
+
 def smoke(dev: torch.device) -> None:
     t_start = time.perf_counter()
 
@@ -1779,7 +2176,11 @@ def smoke(dev: torch.device) -> None:
          device_idle_share=1 - r.n_gops * statistics.median(gop_dev) * 1e-3
          / statistics.median(wall),
          reps=N_TIMED, stage_s_per_gop=stages,
-         wire_bytes_per_run=m.gauges["wire_bytes"])
+         wire_bytes_per_run=m.gauges["wire_bytes"],
+         what="the pipelined loop, jsvx's stages: parse (walk, then per "
+              "GOP parse + pack + copy start), wire_wait (the copy's tail), "
+              "device_dispatch, device_wait (one GOP behind), sink (copies "
+              "the planes to the host, so it also waits for the next GOP)")
 
     with first_design_route():
         two_kernel_gop_times(wire, spec, n_f, seq, meta, consts, dev, card,
@@ -1797,6 +2198,12 @@ def smoke(dev: torch.device) -> None:
     shard = shard_phase(data_1080, fix, dev, card)
     worst = {k: max(v, shard["max_abs_err"].get(k, 0))
              for k, v in worst.items()}
+
+    # ---- 7. the pipelined transcode, the tools, damaged input ---------------
+    t7 = time.perf_counter()
+    pipeline_phase(data_1080, fix, dev, card, cpu_frames,
+                   statistics.median(gop_dev), statistics.median(exp_dev))
+    emit("phase7", seconds=time.perf_counter() - t7)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jsvx", "bench")]

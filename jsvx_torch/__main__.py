@@ -1,20 +1,31 @@
-"""jsvx_torch command line: info / decode / play.
+"""jsvx_torch command line: info / decode / encode / bench / play / warm.
 
 Usage:
   python -m jsvx_torch info CLIP.jsv
   python -m jsvx_torch decode CLIP.jsv OUT_DIR [--rgb]
+      [--impl fused|two_kernel|oracle] [--device cuda]
+  python -m jsvx_torch encode FRAMES.npy CLIP.jsv [--gop 12] [--q 8]
+  python -m jsvx_torch bench CLIP.jsv [--trace DIR]
       [--impl fused|two_kernel] [--device cuda]
   python -m jsvx_torch play CLIP.jsv [--seconds 30] [--rate 1.0]
       [--start 0] [--audio X.wav] [--skip-hard] [--rgb] [--device cuda]
+  python -m jsvx_torch warm [CLIP.jsv | --shape 1920x1088 [--gop 4]
+      [--q 6]] [--device cuda]
 
-The port of ``python -m jsvx``'s ``info``, ``decode`` and ``play``.
-``info`` reads the container header and counts start codes (host only).
+The port of ``python -m jsvx``; each command prints jsvx's JSON plus
+``device``.  ``info`` reads the container header and counts start codes,
+and ``encode`` (an ``.npz`` of ``y``/``cb``/``cr`` stacks or an RGB
+``.npy`` of (N, H, W, 3)) writes jsvx's bytes: both run on the host.
 ``decode`` sends every picture of the stream through
-:class:`jsvx_torch.pipeline.stream.StreamDecoder` and writes it to OUT_DIR
-as ``frame_NNNNN.npz`` (coded-size ``y``, ``cb``, ``cr`` planes) or, with
-``--rgb``, as ``frame_NNNNN.ppm``.  ``play`` runs
-:class:`jsvx_torch.api.Player` on a wall clock and prints a JSON report
-(jsvx's, plus ``device``).  ``decode`` and ``play`` run on the CUDA card
+:class:`jsvx_torch.pipeline.stream.StreamDecoder` (``--impl oracle``: the
+float64 oracle, on the host) and writes it to OUT_DIR as
+``frame_NNNNN.npz`` (coded-size ``y``, ``cb``, ``cr`` planes) or, with
+``--rgb``, as ``frame_NNNNN.ppm``.  ``bench`` runs
+:func:`jsvx_torch.transcode` once, inside a ``torch.profiler`` trace with
+``--trace``.  ``play`` runs :class:`jsvx_torch.api.Player` on a wall
+clock.  ``warm`` builds the CUDA kernels' library and the C++ parser
+(the port's counterpart of jsvx's compile cache) and runs ``transcode``
+twice.  ``decode``, ``bench``, ``play`` and ``warm`` run on the CUDA card
 and fail when there is none; ``--device cpu`` is the only way to the CPU.
 """
 
@@ -66,16 +77,23 @@ def device_for(arg: str) -> str:
 
 
 def cmd_decode(args) -> int:
-    from .pipeline.stream import StreamDecoder
     from .tools.refmath import ycbcr_to_rgb
 
-    device = device_for(args.device)
+    # the oracle is float64 numpy on the host: it needs no card
+    device = "host" if args.impl == "oracle" else device_for(args.device)
     with open(args.stream, "rb") as f:
         data = f.read()
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    res = StreamDecoder(data, device=device).decode(impl=args.impl)
-    frames = [tuple(p.cpu().numpy() for p in f) for f in res.frames]
+    if args.impl == "oracle":
+        from .tools.oracle import decode_stream_oracle
+
+        frames = [f.planes for f in decode_stream_oracle(data)]
+    else:
+        from .pipeline.stream import StreamDecoder
+
+        res = StreamDecoder(data, device=device).decode(impl=args.impl)
+        frames = [tuple(p.cpu().numpy() for p in f) for f in res.frames]
     dt = time.perf_counter() - t0
 
     for i, planes in enumerate(frames):
@@ -88,6 +106,142 @@ def cmd_decode(args) -> int:
     print(json.dumps({"frames": len(frames), "seconds": round(dt, 3),
                       "fps": round(len(frames) / dt, 1), "device": device,
                       "impl": args.impl}))
+    return 0
+
+
+def cmd_encode(args) -> int:
+    from .tools.encoder import EncoderConfig, JsvEncoder, rgb_to_ycbcr
+
+    arr = np.load(args.frames)
+    if isinstance(arr, np.lib.npyio.NpzFile):
+        ys, cbs, crs = arr["y"], arr["cb"], arr["cr"]
+        frames = [(ys[i], cbs[i], crs[i]) for i in range(ys.shape[0])]
+    else:
+        # (N, H, W, 3) RGB
+        frames = [rgb_to_ycbcr(arr[i]) for i in range(arr.shape[0])]
+    h, w = frames[0][0].shape
+    data = JsvEncoder(w, h, EncoderConfig(
+        gop_size=args.gop, quantizer_scale=args.q)).encode(frames)
+    with open(args.out, "wb") as f:
+        f.write(data)
+    print(json.dumps({"frames": len(frames), "bytes": len(data),
+                      "device": "host"}))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """One ``transcode`` of the clip (inside a ``torch.profiler`` trace
+    written to ``--trace DIR``): its metrics, end-to-end frames/s."""
+    from .pipeline.transcode import transcode
+    from .runtime.profiler import device_trace
+
+    device = device_for(args.device)
+    with open(args.stream, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    with device_trace(args.trace, device):
+        res = transcode(data, device=device, impl=args.impl)
+    dt = time.perf_counter() - t0
+    out = res.metrics.to_dict()
+    out["fps_end_to_end"] = res.n_frames / dt
+    if args.trace:
+        out["trace_dir"] = args.trace
+    out["device"] = device
+    out["impl"] = args.impl
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def warm_stream(w: int, h: int, gop: int, q: int) -> str:
+    """jsvx's warm stream (two GOPs of a noisy moving sine pattern, the
+    same encoder settings), cached under ``build/jsvx_torch/warm/`` and
+    keyed by the encoder's source, as the fixture is."""
+    import hashlib
+
+    from .kernels.build import BUILD_ROOT
+    from .tools import encoder
+    from .tools.encoder import EncoderConfig, JsvEncoder
+
+    with open(encoder.__file__, "rb") as f:
+        tag = hashlib.sha256(f.read() + f"|{w}x{h}|g{gop}|q{q}".encode()
+                             ).hexdigest()[:8]
+    src = os.path.join(BUILD_ROOT, "warm", f"jsvx_warm_{tag}.jsv")
+    if os.path.exists(src):
+        return src
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for t in range(2 * gop):
+        y = np.clip(120 + 60 * np.sin(2 * np.pi * (xx + 3 * t) / w)
+                    + rng.normal(0, 5, (h, w)), 0, 255)
+        cb = np.clip(128 + 24 * np.sin(2 * np.pi * xx[::2, ::2] / w), 0, 255)
+        cr = np.clip(128 + 24 * np.cos(2 * np.pi * yy[::2, ::2] / h), 0, 255)
+        frames.append(tuple(p.astype(np.uint8) for p in (y, cb, cr)))
+    data = JsvEncoder(w, h, EncoderConfig(
+        gop_size=gop, quantizer_scale=q, me_range=4,
+        half_pel_refine=True)).encode(frames)
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    tmp = src + f".tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, src)
+    return src
+
+
+def cmd_warm(args) -> int:
+    """Build what a first decode would build (the CUDA kernels' library,
+    on a card, and the C++ parser), then run ``transcode`` twice on the
+    clip (or on jsvx's synthesised warm stream at ``--shape``): the first
+    run's and the second run's wall times."""
+    from .bitstream import native
+    from .kernels import build
+    from .pipeline.transcode import transcode
+
+    device = device_for(args.device)
+    if args.stream:
+        src = args.stream
+    elif args.shape:
+        w, h = (int(x) for x in args.shape.lower().split("x"))
+        src = warm_stream(w, h, args.gop, args.q)
+    else:
+        print("warm: need a stream path or --shape WxH", file=sys.stderr)
+        return 2
+    with open(src, "rb") as f:
+        data = f.read()
+
+    t0 = time.perf_counter()
+    native.get_native_parser()
+    # build_s: the compiler's time, about 0 when the build was on disk
+    parser = {"path": native.library_path(),
+              "build_s": time.perf_counter() - t0}
+    kernels = None
+    if device != "cpu":
+        built = build.load()
+        kernels = {"path": built.path, "build_s": built.seconds}
+
+    def sink(gi, outs):
+        int(outs[0][-1, 0, 0])          # one pixel to the host
+
+    t0 = time.perf_counter()
+    res = transcode(data, sink=sink, device=device)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = transcode(data, sink=sink, device=device)
+    warm_s = time.perf_counter() - t0
+    print(json.dumps({
+        "stream": src,
+        "cache_dir": build.BUILD_ROOT,
+        "kernels": kernels,
+        "parser": parser,
+        "frames": res.n_frames,
+        "compile_plus_first_decode_s": cold_s,
+        "warm_decode_s": warm_s,
+        "warm_fps": res.n_frames / warm_s,
+        "device": device,
+        "note": ("the kernels' library and the parser are built once per "
+                 "source tree under cache_dir (kernels: null on the CPU, "
+                 "which runs the plain versions)"),
+    }))
     return 0
 
 
@@ -175,11 +329,29 @@ def main(argv=None) -> int:
     pd.add_argument("out_dir")
     pd.add_argument("--rgb", action="store_true")
     pd.add_argument("--impl", default="fused",
-                    choices=["fused", "two_kernel"])
+                    choices=["fused", "two_kernel", "oracle"])
     pd.add_argument("--device", default="cuda",
                     help="torch device (default: cuda; cpu runs the "
-                         "plain versions)")
+                         "plain versions; --impl oracle runs on the host)")
     pd.set_defaults(fn=cmd_decode)
+
+    pe = sub.add_parser("encode")
+    pe.add_argument("frames")
+    pe.add_argument("out")
+    pe.add_argument("--gop", type=int, default=12)
+    pe.add_argument("--q", type=int, default=8)
+    pe.set_defaults(fn=cmd_encode)
+
+    pb = sub.add_parser("bench")
+    pb.add_argument("stream")
+    pb.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace to DIR")
+    pb.add_argument("--impl", default="fused",
+                    choices=["fused", "two_kernel"])
+    pb.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; cpu runs the "
+                         "plain versions)")
+    pb.set_defaults(fn=cmd_bench)
 
     pp = sub.add_parser("play")
     pp.add_argument("stream")
@@ -199,6 +371,18 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; cpu runs the "
                          "plain versions)")
     pp.set_defaults(fn=cmd_play)
+
+    pw = sub.add_parser("warm")
+    pw.add_argument("stream", nargs="?", default=None,
+                    help="representative stream to warm with")
+    pw.add_argument("--shape", default=None, metavar="WxH",
+                    help="synthesize a warm stream at this size")
+    pw.add_argument("--gop", type=int, default=4)
+    pw.add_argument("--q", type=int, default=6)
+    pw.add_argument("--device", default="cuda",
+                    help="torch device (default: cuda; cpu builds only the "
+                         "parser and runs the plain versions)")
+    pw.set_defaults(fn=cmd_warm)
     args = p.parse_args(argv)
     return args.fn(args)
 

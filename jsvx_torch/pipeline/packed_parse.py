@@ -1,15 +1,16 @@
 """Host front end: header walk and per-GOP parse, compact and dense.
 
-Copies of what the port needs from ``jsvx/pipeline/packed_parse.py`` and
-``jsvx/pipeline/parallel_parse.py``.  The C++ parser
-(``jsvx_torch.bitstream.native``) writes each picture's coded
+Copies of what the port needs from ``jsvx/pipeline/packed_parse.py`` (the
+picture-header helpers live in :mod:`.parallel_parse`, as in jsvx).  The
+C++ parser (``jsvx_torch.bitstream.native``) writes each picture's coded
 coefficients, one uint16 entry each, and the per-macroblock sideband;
 :func:`parse_gop_compact` concatenates a GOP's entries into one
 bucket-padded array per component.
 :func:`parse_gop_packed` parses a GOP into dense stacked planes instead:
 the wire of the oddify-zeros quirk and of GOPs the compact wire cannot
-express.  The port's kernels read per-block motion vectors directly, so
-no distinct-vector table is built (the JAX package's ``mv_capacity=0``).
+express; :func:`parse_stream_packed` does so for every GOP of a stream.
+The port's kernels read per-block motion vectors directly, so no
+distinct-vector table is built (the JAX package's ``mv_capacity=0``).
 """
 
 from __future__ import annotations
@@ -22,10 +23,10 @@ import numpy as np
 from ..bitstream.bitio import BitReader
 from ..bitstream.container import StartCodeIndex, parse_container_header
 from ..bitstream.native import get_native_parser
-from ..bitstream.parser import (FrameTensors, StreamParser,
-                                alloc_frame_tensors)
+from ..bitstream.parser import FrameTensors, StreamParser
 from ..coding import tables as T
 from ..kernels.decode import COMP_KEYS, comp_is_chroma
+from .parallel_parse import _parse_picture_header, _picture_end
 
 
 class BufferPool:
@@ -33,10 +34,18 @@ class BufferPool:
 
     Release a buffer only once nothing reads it any more: after its
     device copy is complete, or, on the CPU device, after a clone.
+
+    ``pin=True`` (for copies to a CUDA card) backs each buffer with a
+    page-locked torch tensor (``pin_memory=True``) and hands out its numpy
+    view, so a copy from it can run asynchronously;
+    :meth:`host_tensor` gives that tensor back.  CPU-only torch cannot
+    pin memory.
     """
 
-    def __init__(self):
+    def __init__(self, pin: bool = False):
+        self.pin = pin
         self._free: dict = {}
+        self._pinned: dict = {}          # buffer address -> its tensor
         self._lock = threading.Lock()
 
     def acquire(self, shape: tuple, dtype) -> np.ndarray:
@@ -45,48 +54,33 @@ class BufferPool:
             lst = self._free.get(key)
             if lst:
                 return lst.pop()
-        return np.empty(shape, dtype)
+        if not self.pin:
+            return np.empty(shape, dtype)
+        import torch
+
+        dt = np.dtype(dtype)
+        n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        t = torch.empty((n,), dtype=torch.uint8, pin_memory=True)
+        arr = t.numpy().view(dt).reshape(shape)
+        with self._lock:
+            self._pinned[arr.ctypes.data] = t
+        return arr
 
     def release(self, arr: np.ndarray) -> None:
         key = (arr.shape, arr.dtype.str)
         with self._lock:
             self._free.setdefault(key, []).append(arr)
 
+    def host_tensor(self, arr: np.ndarray):
+        """A uint8 1-D buffer of this pool as a torch tensor: the pinned
+        tensor behind it, or (unpinned) ``torch.from_numpy``."""
+        import torch
 
-def _parse_picture_header(parser: StreamParser, r: BitReader):
-    """Picture-header fields + FrameTensors stub (serial part)."""
-    seq = parser.seq
-    temporal_ref = r.get_bits(10)
-    ptype = r.get_bits(3)
-    r.advance(16)
-    if ptype <= 0 or ptype >= T.PICTURE_TYPE_B:
-        return None, 0
-    full_pel = False
-    f_code = 0
-    if ptype == T.PICTURE_TYPE_P:
-        full_pel = bool(r.get_bits(1))
-        f_code = r.get_bits(3)
-        if f_code == 0:
-            return None, 0
-    ft = alloc_frame_tensors(seq, ptype, temporal_ref, full_pel, f_code,
-                             parser._pending_gop_time
-                             if parser._have_pending_gop else 0.0,
-                             yuva=parser.yuva)
-    parser._have_pending_gop = False
-    return ft, r.bit_pos
-
-
-def _picture_end(index: StartCodeIndex, from_byte: int, eos: int) -> int:
-    entries = index.entries
-    i = int(np.searchsorted(entries[:, 0], from_byte))
-    skip = (T.START_EXTENSION, T.START_USER_DATA)
-    while i < len(entries):
-        code = int(entries[i, 1])
-        if not (T.START_SLICE_FIRST <= code <= T.START_SLICE_LAST
-                or code in skip):
-            return int(entries[i, 0])
-        i += 1
-    return eos
+        if arr.dtype != np.uint8 or arr.ndim != 1:
+            raise ValueError("host_tensor takes a 1-D uint8 buffer")
+        with self._lock:
+            t = self._pinned.get(arr.ctypes.data)
+        return torch.from_numpy(arr) if t is None else t[:arr.size]
 
 
 def walk_stream(data: bytes):
@@ -136,6 +130,7 @@ class CompactGop:
 
     stacked: dict
     hdrs: list
+    index: int = 0
     pooled: list = field(default_factory=list)
     dirty: bool = False
 
@@ -151,8 +146,10 @@ def coef_bucket(n: int) -> int:
 
 def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
                       pool: BufferPool, buckets: dict,
-                      n_threads: int | None = None) -> CompactGop:
-    """Parse one GOP into the compact wire format.
+                      n_threads: int | None = None,
+                      index: int = 0) -> CompactGop:
+    """Parse one GOP (GOP ``index`` of its stream) into the compact wire
+    format.
 
     ``buckets`` maps component key -> sticky entry-capacity bucket; it is
     grown in place so successive GOPs keep stable shapes.
@@ -226,7 +223,7 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
     for row in scratch:
         for s in row:
             pool.release(s)
-    return CompactGop(stacked=out, hdrs=hdrs, pooled=pooled,
+    return CompactGop(stacked=out, hdrs=hdrs, index=index, pooled=pooled,
                       dirty=any(dirty))
 
 
@@ -238,6 +235,7 @@ class PackedGop:
 
     stacked: dict
     fts: list
+    index: int = 0
     pooled: list = field(default_factory=list)
 
 
@@ -253,8 +251,9 @@ def _mb_to_blocks(a: np.ndarray, comp: int) -> np.ndarray:
 def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
                      pool: BufferPool | None = None,
                      n_threads: int | None = None,
-                     slice_threads: int = 1) -> PackedGop:
-    """Parse one GOP's pictures into freshly-acquired stacked arrays.
+                     slice_threads: int = 1, index: int = 0) -> PackedGop:
+    """Parse one GOP's pictures (GOP ``index`` of its stream) into
+    freshly-acquired stacked arrays.
 
     Small per-MB arrays are zeroed; coefficient planes are NOT cleared:
     the dequantiser masks every position at or after a block's ``lnz``,
@@ -319,4 +318,35 @@ def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
             mv=np.ascontiguousarray(_mb_to_blocks(mb_mv, c)),
             rep_add=np.ascontiguousarray(_mb_to_blocks(mb_rep_add, c)),
         )
-    return PackedGop(stacked=out, fts=fts, pooled=levels)
+    return PackedGop(stacked=out, fts=fts, index=index, pooled=levels)
+
+
+@dataclass
+class PackedStream:
+    meta: object
+    seq: object
+    gops: list                   # list[PackedGop]
+
+    @property
+    def n_frames(self) -> int:
+        return sum(len(g.fts) for g in self.gops)
+
+
+def parse_stream_packed(data: bytes, n_threads: int | None = None,
+                        pool: BufferPool | None = None,
+                        slice_threads: int = 1) -> PackedStream:
+    """Parse a complete stream into stacked dense GOPs (the C++ parser).
+
+    jsvx's function without the distinct-vector sideband: its
+    ``mv_capacity=0``.  Each GOP's ``pooled`` buffers belong to ``pool``
+    until the caller releases them.
+    """
+    data = bytes(data)
+    arr = np.frombuffer(data, dtype=np.uint8)
+    meta, seq, groups = walk_stream(data)
+    pool = pool or BufferPool()
+    gops = [parse_gop_packed(arr, g, seq, meta, pool=pool,
+                             n_threads=n_threads,
+                             slice_threads=slice_threads, index=gi)
+            for gi, g in enumerate(groups)]
+    return PackedStream(meta=meta, seq=seq, gops=gops)

@@ -1,10 +1,11 @@
-"""End-to-end batch decode: parse -> one wire copy -> GOP decode -> sink.
+"""End-to-end batch decode: parse GOP g+1 while GOP g decodes -> sink.
 
-The port of ``jsvx/pipeline/transcode.py``.  Per GOP the host parses the
-pictures with the C++ parser, packs them into one uint8 wire, and copies
-it to ``device`` once; on the device the wire is unpacked and each plane
-of each frame decoded by the ``impl`` chosen (see
-:mod:`jsvx_torch.pipeline.gop`).  Two wires:
+The port of ``jsvx/pipeline/transcode.py``, in jsvx's order of work and
+under jsvx's stage names.  Per GOP the host parses the pictures with the
+C++ parser into pooled buffers and packs them into one uint8 wire; the
+wire's copy to ``device`` starts at once, and the host parses the next
+GOP while the device decodes this one (each plane of each frame by the
+``impl`` chosen, see :mod:`jsvx_torch.pipeline.gop`).  Two wires:
 
 * compact (the default): the coded coefficients only, expanded on the
   device (``_transcode_compact``).  A GOP whose stream emits blocks out
@@ -14,24 +15,51 @@ of each frame decoded by the ``impl`` chosen (see
   the oddify-zeros quirk, which changes positions the compact wire does
   not carry.
 
-Stages are timed in ``Metrics``: ``parse``, ``h2d``, ``device_decode``
-(ends when the GOP's planes are complete) and ``sink``.
+On a card the pooled host buffers are pinned, and each wire is copied on
+a copy stream that belongs to the call, with an event recorded after it;
+the decode's launches go to the current stream, which waits for that
+event, and a "decoded" event is recorded after each GOP's launches.  The
+device wire is allocated on the copy stream and read on the current one,
+so it is marked as used there (``record_stream``): without that the
+caching allocator could hand its block to the next GOP's copy while this
+GOP's kernels still read it.  On the CPU the same order runs, each wire a
+clone of its pooled buffer, and nothing overlaps.
+
+Stages in ``Metrics``:
+
+* ``parse``: the header walk, then per GOP the parse, the pack and the
+  start of the wire's copy;
+* ``wire_wait`` (compact GOPs): the host waits for the copy's event, the
+  un-overlapped tail of the upload; the GOP's pooled buffers then go
+  back to the pool, in time for the next parse;
+* ``device_dispatch``: the GOP's launches are enqueued;
+* ``device_wait``: the host waits for the GOP's "decoded" event (on the
+  compact route one GOP behind: after the next GOP is dispatched and the
+  one after it parsed);
+* ``sink``: the caller's sink;
+* ``expand_probe_compile`` (``probe_expand=True``): the probe's first run.
+
+Gauges: ``width``, ``height``, ``wire_bytes`` (every wire copied, dense
+fallbacks included) and, with ``probe_expand``,
+``expand_probe_s_per_gop``.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ..kernels.decode import make_constants
+from ..kernels.expand import expand_compact_gop
 from ..runtime.multihost import GopManifest
 from ..runtime.profiler import Metrics
 from .gop import decode_gop_wire, frame_decoder, zero_refs
 from .packed_parse import (BufferPool, parse_gop_compact, parse_gop_packed,
                            walk_stream)
-from .wire import flatten_wire, wire_spec
+from .wire import flatten_wire, unflatten_wire, wire_spec
 
 
 @dataclass
@@ -58,12 +86,67 @@ def pack(stacked: dict, pool: BufferPool) -> tuple:
 
 
 def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One copy of a host wire to ``device``.  On the CPU ``from_numpy``
-    aliases the buffer, so it is cloned before a pool can hand the buffer
-    to the next parse; a copy from pageable memory to the card is
-    complete when ``.to()`` returns."""
+    """One copy of a host wire to ``device``, complete when it returns.
+    On the CPU ``from_numpy`` aliases the buffer, so it is cloned before a
+    pool can hand the buffer to the next parse."""
     host = torch.from_numpy(buf)
     return host.clone() if device.type == "cpu" else host.to(device)
+
+
+@dataclass
+class Upload:
+    """One GOP's wire on its way to the device."""
+
+    index: int
+    n_frames: int
+    compact: bool
+    spec: tuple
+    wire: torch.Tensor           # on the device
+    pooled: list                 # host buffers held until the copy is done
+    copied: object = None        # the copy's CUDA event (None on the CPU)
+
+
+class WireCopier:
+    """The copies of one call's wires to ``device``.
+
+    On a card: from the pool's pinned buffer, ``non_blocking``, on a copy
+    stream of its own, each followed by an event; the current stream
+    (the decode's) waits for that event before the GOP's launches, and
+    the device wire is marked as used by it.  On the CPU: a clone.
+    """
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.compute = torch.cuda.current_stream(device)
+            self.stream = torch.cuda.Stream(device)
+
+    def copy(self, host: torch.Tensor) -> tuple:
+        """Start the copy of ``host``; returns (device wire, event)."""
+        if not self.cuda:
+            return host.clone(), None
+        with torch.cuda.stream(self.stream):
+            wire = host.to(self.device, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        wire.record_stream(self.compute)
+        return wire, copied
+
+    def decoded(self):
+        """An event after everything enqueued so far on the decode's
+        stream (None on the CPU)."""
+        if not self.cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(self.compute)
+        return ev
+
+
+def wait(event) -> None:
+    """The host waits for ``event`` (nothing to wait for on the CPU)."""
+    if event is not None:
+        event.synchronize()
 
 
 def transcode(data: bytes, sink=None, *, device="cuda",
@@ -72,101 +155,224 @@ def transcode(data: bytes, sink=None, *, device="cuda",
               process_id: int = 0, process_count: int = 1,
               n_parse_threads: int | None = None,
               quirk_oddify_zeros: bool = False,
-              metrics: Metrics | None = None) -> TranscodeResult:
+              metrics: Metrics | None = None,
+              probe_expand: bool = False) -> TranscodeResult:
     """Decode every (assigned, pending) GOP of ``data`` on ``device`` (a
     CUDA card unless the caller asks for ``"cpu"``).  The host parse runs
     in the C++ parser, built on first use; a failed build raises.
 
     ``sink(gop_index, frames)`` receives each GOP's decoded (Y, Cb, Cr[,
-    A]) stacks, uint8 tensors on ``device``.  ``impl`` is ``"fused"`` or
-    ``"two_kernel"``.  With a ``manifest``, completed GOPs are journaled
-    and skipped on resume; with ``process_count > 1`` only this process's
-    round-robin share is decoded.
+    A]) stacks, uint8 tensors on ``device``, new for each GOP; on the
+    compact route it runs one GOP behind the dispatch, so a sink that
+    copies to the host also waits for the next GOP's launches.  ``impl``
+    is ``"fused"`` or ``"two_kernel"``.  With a ``manifest``, completed
+    GOPs are journaled and skipped on resume; with ``process_count > 1``
+    only this process's round-robin share is decoded.
+
+    ``probe_expand=True`` times, after the loop, the unflatten and
+    expansion of the last compact GOP's device wire on its own (each run
+    ending in a synchronise; the best of 3 after a first run) as the gauge
+    ``expand_probe_s_per_gop``: inside the loop the expansion and the
+    decode run back to back on the device.
     """
     frame_decoder(impl)                  # reject an unknown impl early
-    run = _transcode_packed if quirk_oddify_zeros else _transcode_compact
-    return run(data, sink, device=torch.device(device), impl=impl,
-               manifest=manifest, process_id=process_id,
-               process_count=process_count, n_parse_threads=n_parse_threads,
-               quirk_oddify_zeros=quirk_oddify_zeros,
-               metrics=metrics or Metrics())
+    device = torch.device(device)
+    kw = dict(device=device, impl=impl, manifest=manifest,
+              process_id=process_id, process_count=process_count,
+              n_parse_threads=n_parse_threads,
+              metrics=metrics or Metrics())
+    if quirk_oddify_zeros:
+        # the compact wire cannot express the oddify-zeros quirk (it
+        # oddifies positions the compact wire elides by design)
+        return _transcode_packed(data, sink, **kw)
+    return _transcode_compact(data, sink, probe_expand=probe_expand, **kw)
 
 
-def _transcode_compact(data: bytes, sink, **kw) -> TranscodeResult:
-    """The compact wire, with the per-GOP dense fallback for dirty GOPs."""
+class _Run:
+    """What the two routes share: the header walk, the GOPs to do, the
+    pool, the copies, the dispatch and the delivery."""
+
+    def __init__(self, data: bytes, sink, *, device: torch.device,
+                 impl: str, manifest: GopManifest | None, process_id: int,
+                 process_count: int, n_parse_threads: int | None,
+                 metrics: Metrics):
+        self.arr = np.frombuffer(bytes(data), dtype=np.uint8)
+        self.sink, self.device, self.impl = sink, device, impl
+        self.manifest, self.metrics = manifest, metrics
+        self.n_threads = n_parse_threads
+        with metrics.timers.stage("parse"):
+            self.meta, self.seq, self.groups = walk_stream(data)
+        self.consts = make_constants(self.seq, device)
+        if manifest is None:
+            self.todo = list(range(len(self.groups)))
+        else:
+            self.todo = [s.index for s in
+                         manifest.pending(process_id, process_count)
+                         if s.index < len(self.groups)]
+        self.pool = BufferPool(pin=device.type == "cuda")
+        self.copier = WireCopier(device)
+        self.n_frames = 0
+        self.wire_total = 0
+
+    def parse_dense(self, gi: int):
+        return parse_gop_packed(self.arr, self.groups[gi], self.seq,
+                                self.meta, self.pool,
+                                n_threads=self.n_threads, index=gi)
+
+    def upload(self, stacked: dict, gi: int, n_frames: int, pooled: list,
+               compact: bool) -> Upload:
+        """Pack ``stacked`` into one pooled wire and start its copy."""
+        spec, buf = pack(stacked, self.pool)
+        wire, copied = self.copier.copy(self.pool.host_tensor(buf))
+        self.wire_total += buf.nbytes
+        return Upload(index=gi, n_frames=n_frames, compact=compact,
+                      spec=spec, wire=wire, pooled=pooled + [buf],
+                      copied=copied)
+
+    def release(self, up: Upload) -> None:
+        for buf in up.pooled:
+            self.pool.release(buf)
+        up.pooled = []
+
+    def dispatch(self, up: Upload, quirk: bool) -> tuple:
+        """Enqueue GOP ``up``'s decode; returns (its output planes, the
+        event recorded after its launches)."""
+        with self.metrics.timers.stage("device_dispatch"):
+            if up.copied is not None:
+                self.copier.compute.wait_event(up.copied)
+            seq = self.seq
+            refs = zero_refs(seq.coded_height, seq.coded_width,
+                             self.meta.n_components, self.device)
+            outs, _ = decode_gop_wire(up.wire, up.spec, refs, self.consts,
+                                      seq.mb_height, seq.mb_width, quirk,
+                                      self.impl)
+            return outs, self.copier.decoded()
+
+    def deliver(self, up: Upload, outs: tuple) -> None:
+        """Hand a complete GOP to the sink; count and journal it."""
+        if self.sink is not None:
+            with self.metrics.timers.stage("sink"):
+                self.sink(up.index, outs)
+        self.n_frames += up.n_frames
+        self.metrics.count("frames", up.n_frames)
+        self.metrics.count("gops")
+        if self.manifest is not None:
+            self.manifest.mark_done(up.index, frames=up.n_frames)
+
+    def result(self) -> TranscodeResult:
+        m = self.metrics
+        m.gauge("width", self.meta.width)
+        m.gauge("height", self.meta.height)
+        m.gauge("wire_bytes", self.wire_total)
+        return TranscodeResult(n_frames=self.n_frames, n_gops=len(self.todo),
+                               metrics=m, width=self.meta.width,
+                               height=self.meta.height)
+
+
+def _transcode_compact(data: bytes, sink, *, probe_expand: bool = False,
+                       **kw) -> TranscodeResult:
+    """The compact wire, pipelined: parse(g+1) overlaps GOP g's upload
+    tail and decode, and GOP g-1 is delivered after GOP g is dispatched.
+    GOPs whose streams emit blocks out of order fall back to the dense
+    wire per GOP (uploaded the same way, waited for by the device only)."""
+    run = _Run(data, sink, **kw)
+    metrics = run.metrics
     buckets: dict = {}                   # sticky per-component buckets
 
-    def parse(arr, group, seq, meta, pool, n_threads):
-        g = parse_gop_compact(arr, group, seq, meta, pool, buckets,
-                              n_threads=n_threads)
-        if not g.dirty:
-            return g.stacked, g.pooled, len(g.hdrs)
-        for b in g.pooled:
-            pool.release(b)
-        return _parse_dense(arr, group, seq, meta, pool, n_threads)
+    def parse_one(gi: int) -> Upload:
+        with metrics.timers.stage("parse"):
+            g = parse_gop_compact(run.arr, run.groups[gi], run.seq,
+                                  run.meta, run.pool, buckets,
+                                  n_threads=run.n_threads, index=gi)
+            if not g.dirty:
+                return run.upload(g.stacked, gi, len(g.hdrs), g.pooled,
+                                  compact=True)
+            for buf in g.pooled:
+                run.pool.release(buf)
+            g = run.parse_dense(gi)
+            return run.upload(g.stacked, gi, len(g.fts), g.pooled,
+                              compact=False)
 
-    return _run_gops(data, sink, parse, **kw)
+    def flush(pending) -> None:
+        """Complete and deliver a dispatched GOP (one GOP behind the
+        dispatch, so its delivery overlaps the next GOP's device work)."""
+        up, outs, decoded = pending
+        with metrics.timers.stage("device_wait"):
+            wait(decoded)
+        run.release(up)                  # dense fallback: freed here
+        run.deliver(up, outs)
+
+    todo = run.todo
+    last = None
+    pending = None
+    nxt = parse_one(todo[0]) if todo else None
+    for i, gi in enumerate(todo):
+        up = nxt
+        if up.compact:
+            last = up
+            # whatever is left of the upload here is its un-overlapped
+            # tail; once it is done the pooled host buffers are free for
+            # the next parse (released one GOP later, every parse would
+            # allocate fresh multi-MB buffers)
+            with metrics.timers.stage("wire_wait"):
+                wait(up.copied)
+            run.release(up)
+        outs, decoded = run.dispatch(up, quirk=False)
+        nxt = parse_one(todo[i + 1]) if i + 1 < len(todo) else None
+        if pending is not None:
+            flush(pending)
+        pending = (up, outs, decoded)
+    if pending is not None:
+        flush(pending)
+
+    if probe_expand and last is not None:
+        _probe_expand(run, last)
+    return run.result()
+
+
+def _probe_expand(run: _Run, up: Upload) -> None:
+    """Unflatten + expansion of ``up``'s device wire alone: a first run
+    (stage ``expand_probe_compile``), then the best of 3, each ending in a
+    synchronise, as the gauge ``expand_probe_s_per_gop``."""
+    seq = run.seq
+
+    def expand() -> None:
+        expand_compact_gop(unflatten_wire(up.wire, up.spec), seq.mb_height,
+                           seq.mb_width)
+        synchronize(run.device)
+
+    with run.metrics.timers.stage("expand_probe_compile"):
+        expand()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        expand()
+        best = min(best, time.perf_counter() - t0)
+    run.metrics.gauge("expand_probe_s_per_gop", best)
 
 
 def _transcode_packed(data: bytes, sink, **kw) -> TranscodeResult:
-    """The dense wire for every GOP (the oddify-zeros quirk's route)."""
-    return _run_gops(data, sink, _parse_dense, **kw)
+    """The dense wire for every GOP (the oddify-zeros quirk's route): while
+    the device decodes GOP g the host parses GOP g+1; GOP g is then waited
+    for, its buffers recycled and delivered before GOP g+1 is dispatched."""
+    run = _Run(data, sink, **kw)
+    metrics = run.metrics
 
-
-def _parse_dense(arr, group, seq, meta, pool, n_threads):
-    g = parse_gop_packed(arr, group, seq, meta, pool, n_threads=n_threads)
-    return g.stacked, g.pooled, len(g.fts)
-
-
-def _run_gops(data: bytes, sink, parse, *, device: torch.device, impl: str,
-              manifest: GopManifest | None, process_id: int,
-              process_count: int, n_parse_threads: int | None,
-              quirk_oddify_zeros: bool,
-              metrics: Metrics) -> TranscodeResult:
-    """The GOP loop both wires share: ``parse(arr, group, seq, meta, pool,
-    n_threads)`` gives (stacked dict, pooled buffers, frame count)."""
-    arr = np.frombuffer(bytes(data), dtype=np.uint8)
-    with metrics.timers.stage("parse"):
-        meta, seq, groups = walk_stream(data)
-    consts = make_constants(seq, device)
-    if manifest is None:
-        todo = list(range(len(groups)))
-    else:
-        todo = [s.index for s in manifest.pending(process_id, process_count)
-                if s.index < len(groups)]
-
-    pool = BufferPool()
-    n_frames = 0
-    wire_total = 0
-    for gi in todo:
+    def parse_one(gi: int) -> Upload:
         with metrics.timers.stage("parse"):
-            stacked, pooled, nf = parse(arr, groups[gi], seq, meta, pool,
-                                        n_parse_threads)
-            spec, buf = pack(stacked, pool)
-        with metrics.timers.stage("h2d"):
-            wire = to_device(buf, device)
-        for b in pooled + [buf]:
-            pool.release(b)
-        wire_total += buf.nbytes
-        with metrics.timers.stage("device_decode"):
-            refs = zero_refs(seq.coded_height, seq.coded_width,
-                             meta.n_components, device)
-            outs, _ = decode_gop_wire(wire, spec, refs, consts,
-                                      seq.mb_height, seq.mb_width,
-                                      quirk_oddify_zeros, impl)
-            synchronize(device)
-        if sink is not None:
-            with metrics.timers.stage("sink"):
-                sink(gi, outs)
-        n_frames += nf
-        metrics.count("frames", nf)
-        metrics.count("gops")
-        if manifest is not None:
-            manifest.mark_done(gi, frames=nf)
+            g = run.parse_dense(gi)
+            return run.upload(g.stacked, gi, len(g.fts), g.pooled,
+                              compact=False)
 
-    metrics.gauge("width", meta.width)
-    metrics.gauge("height", meta.height)
-    metrics.gauge("wire_bytes", wire_total)
-    return TranscodeResult(n_frames=n_frames, n_gops=len(todo),
-                           metrics=metrics, width=meta.width,
-                           height=meta.height)
+    todo = run.todo
+    nxt = parse_one(todo[0]) if todo else None
+    for i, gi in enumerate(todo):
+        up = nxt
+        outs, decoded = run.dispatch(up, quirk=True)
+        # overlap: the host parses the next GOP while the device decodes
+        nxt = parse_one(todo[i + 1]) if i + 1 < len(todo) else None
+        with metrics.timers.stage("device_wait"):
+            wait(decoded)
+        run.release(up)
+        run.deliver(up, outs)
+    return run.result()

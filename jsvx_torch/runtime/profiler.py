@@ -1,5 +1,5 @@
 """Tracing / profiling / metrics subsystem (the port's copy of
-``jsvx/runtime/profiler.py``; its JAX device trace is not carried).
+``jsvx/runtime/profiler.py``, its device trace on ``torch.profiler``).
 
 The reference has only console logging and ad-hoc frame-lateness counters
 (SURVEY.md section 5).  This is the first-class replacement:
@@ -7,6 +7,8 @@ The reference has only console logging and ad-hoc frame-lateness counters
 * :class:`StageTimer` — per-stage wall-clock accounting (parse, H2D,
   device decode, color, sink) with EMA rates;
 * :class:`FpsMeter`   — sliding-window frames/s;
+* :func:`device_trace` — context manager around ``torch.profiler`` that
+  writes a Chrome trace (host ops and, on a CUDA card, the kernels);
 * :class:`Metrics`    — counter/gauge registry that serialises to one
   JSON line (the shape a benchmark consumes).
 """
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import defaultdict, deque
 from dataclasses import dataclass, field
@@ -61,6 +64,31 @@ class FpsMeter:
             return 0.0
         span = self._stamps[-1] - self._stamps[0]
         return (len(self._stamps) - 1) / span if span > 0 else 0.0
+
+
+#: the file :func:`device_trace` writes into its directory
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str | None, device=None):
+    """A ``torch.profiler`` trace of the body when a log dir is given
+    (no-op otherwise): CPU activity, and CUDA activity (every kernel the
+    process launches, by symbol) when ``device`` is a CUDA device.  On
+    exit the Chrome trace is written to ``log_dir/trace.json``."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device is not None and torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
 @dataclass

@@ -490,3 +490,33 @@ def test_decoder_on_the_card_equals_the_cpu():
         assert all(p.device.type == "cuda" for f in gpu for p in f.planes)
         _bit_equal([tuple(p.cpu().numpy() for p in f.planes) for f in gpu],
                    [_np(f) for f in cpu])
+
+
+@pytest.mark.cuda
+def test_pipelined_transcode_on_the_card_equals_the_cpu():
+    """``transcode`` on a card: pinned pool buffers, and each route's
+    planes (every GOP kept by the sink until the run ends) equal to the
+    CPU's, over four GOPs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from jsvx_torch.pipeline.packed_parse import BufferPool
+    from jsvx_torch.pipeline.transcode import transcode
+    from jsvx_torch.tools.fixture import zoom_clip
+
+    pool = BufferPool(pin=True)
+    buf = pool.acquire((4096,), np.uint8)
+    assert pool.host_tensor(buf).is_pinned()
+    assert torch.from_numpy(buf).is_pinned()
+    data = JsvEncoder(128, 96, EncoderConfig(
+        gop_size=2, quantizer_scale=5, me_range=6, half_pel_refine=True)) \
+        .encode(zoom_clip(96, 128, 8, seed=5))
+    for impl in ("fused", "two_kernel"):
+        runs = []
+        for device in ("cuda", "cpu"):
+            kept = {}
+            transcode(data, lambda gi, outs: kept.__setitem__(gi, outs),
+                      device=device, impl=impl)
+            assert sorted(kept) == [0, 1, 2, 3]
+            runs.append([o.cpu() for gi in sorted(kept) for o in kept[gi]])
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)

@@ -26,6 +26,7 @@ from jsvx.tools.oracle import decode_stream_oracle
 from jsvx_torch.kernels.expand import expand_compact_gop, expand_levels
 from jsvx_torch.pipeline import packed_parse as tpp
 from jsvx_torch.pipeline import wire as twire
+from jsvx_torch.pipeline.stream import StreamDecoder
 from jsvx_torch.pipeline.transcode import transcode
 
 from conftest import synthetic_frames, synthetic_frames_yuva
@@ -214,7 +215,8 @@ def test_transcode_result_and_metrics(stream):
     res = transcode(stream, device="cpu")
     assert res.n_frames == 10 and res.n_gops == 2
     stages = res.metrics.to_dict()["stages"]
-    assert {"parse", "h2d", "device_decode"} <= stages.keys()
+    assert {"parse", "wire_wait", "device_dispatch",
+            "device_wait"} <= stages.keys()
     assert res.metrics.counters["frames"] == 10
     assert res.metrics.gauges["wire_bytes"] > 0
 
@@ -308,3 +310,189 @@ def test_dirty_stream_matches_jsvx_dense_fallback():
                 diff = np.abs(p.astype(int) - r.astype(int))
                 assert diff.max() <= 1
                 assert (diff > 0).sum() <= 1e-3 * diff.size
+
+
+# ---------------------------------------------------------------------------
+# The pipelined GOP loop: jsvx's order, stages and gauges
+
+
+@pytest.fixture(scope="module")
+def three_gops():
+    return _encode(synthetic_frames(9, 48, 64, seed=21), gop_size=3,
+                   quantizer_scale=4, me_range=4)
+
+
+def _frames_of(run) -> list:
+    return [tuple(p.numpy() for p in f) for f in run.frames]
+
+
+@pytest.mark.parametrize("quirk", [False, True], ids=["compact", "quirk"])
+@pytest.mark.parametrize("impl", ["fused", "two_kernel"])
+def test_transcode_bit_equal_to_stream_decoder(stream, impl, quirk):
+    """The pipelined loop gives the planes the port's ``StreamDecoder``
+    gives (one GOP at a time, no overlap), bit for bit."""
+    got = _collect(lambda sink: transcode(stream, sink, device="cpu",
+                                          impl=impl,
+                                          quirk_oddify_zeros=quirk))
+    want = _frames_of(StreamDecoder(stream, quirk, device="cpu")
+                      .decode(impl=impl))
+    assert len(got) == len(want) == 10
+    for fg, fw in zip(got, want):
+        for g, w in zip(fg, fw):
+            assert np.array_equal(g, w)
+
+
+@pytest.mark.parametrize("impl", ["fused", "two_kernel"])
+def test_dirty_stream_bit_equal_to_stream_decoder(impl):
+    from test_compact_wire import _duplicate_first_slice
+
+    data = _duplicate_first_slice(_encode(
+        synthetic_frames(6, 48, 64, seed=13), gop_size=3,
+        quantizer_scale=4))
+    got = _collect(lambda sink: transcode(data, sink, device="cpu",
+                                          impl=impl))
+    want = _frames_of(StreamDecoder(data, device="cpu").decode(impl=impl))
+    assert len(got) == len(want) == 6
+    for fg, fw in zip(got, want):
+        for g, w in zip(fg, fw):
+            assert np.array_equal(g, w)
+
+
+def _logged_order(monkeypatch, run, parse_mod, parse_names, decode_mod,
+                  decode_name) -> list:
+    """Run ``run(sink)`` with each parse of ``parse_mod`` and the GOP
+    decode of ``decode_mod`` logging; returns the log."""
+    log = []
+
+    def parse(fn):
+        def logged(*a, **kw):
+            log.append(f"parse {kw['index']}")
+            return fn(*a, **kw)
+        return logged
+
+    def decode(fn):
+        def logged(*a, **kw):
+            log.append(f"decode {sum(e.startswith('decode') for e in log)}")
+            return fn(*a, **kw)
+        return logged
+
+    for name in parse_names:
+        monkeypatch.setattr(parse_mod, name, parse(getattr(parse_mod, name)))
+    monkeypatch.setattr(decode_mod, decode_name,
+                        decode(getattr(decode_mod, decode_name)))
+    run(lambda gi, outs: log.append(f"sink {gi}"))
+    return log
+
+
+@pytest.mark.parametrize("quirk,order", [
+    # the compact route: GOP g-1 is delivered after GOP g is dispatched
+    # and GOP g+1 parsed
+    (False, ["parse 0", "decode 0", "parse 1", "decode 1", "parse 2",
+             "sink 0", "decode 2", "sink 1", "sink 2"]),
+    # the dense quirk route: GOP g is delivered after GOP g+1 is parsed
+    (True, ["parse 0", "decode 0", "parse 1", "sink 0", "decode 1",
+            "parse 2", "sink 1", "decode 2", "sink 2"])],
+    ids=["compact", "quirk"])
+def test_transcode_order_is_jsvx(three_gops, monkeypatch, quirk, order):
+    """Parse, dispatch and delivery on a 3-GOP stream, the port's and
+    jsvx's ``transcode`` logged the same way."""
+    import jsvx.pipeline.gop as jgop
+    import jsvx.pipeline.transcode as jtr
+    import jsvx_torch.pipeline.transcode as ttr
+
+    port = _logged_order(
+        monkeypatch, lambda sink: transcode(three_gops, sink, device="cpu",
+                                            quirk_oddify_zeros=quirk),
+        ttr, ("parse_gop_compact", "parse_gop_packed"), ttr,
+        "decode_gop_wire")
+    # jsvx imports its parse (and its compact route's decode) inside the
+    # function, its quirk route's decode at the top of the module
+    ref = _logged_order(
+        monkeypatch, lambda sink: j_transcode(three_gops, sink, impl="xla",
+                                              quirk_oddify_zeros=quirk),
+        jpp, ("parse_gop_compact", "parse_gop_packed"),
+        jtr if quirk else jgop,
+        "decode_gop_scan" if quirk else "decode_gop_scan_wire")
+    assert port == ref == order
+
+
+def test_sink_tensors_distinct_and_intact(three_gops):
+    """Each GOP's planes are new tensors, kept by the sink without a copy
+    and unchanged once every later GOP has been decoded."""
+    kept, at_sink = [], []
+
+    def sink(gi, outs):
+        kept.append(outs)
+        at_sink.append([o.clone() for o in outs])
+
+    transcode(three_gops, sink, device="cpu")
+    ptrs = [o.data_ptr() for outs in kept for o in outs]
+    assert len(ptrs) == 9 and len(set(ptrs)) == 9
+    for outs, copies in zip(kept, at_sink):
+        for o, c in zip(outs, copies):
+            assert torch.equal(o, c)
+
+
+def test_transcode_stages_and_probe_expand(stream):
+    """jsvx's stage names and gauges, ``probe_expand`` included, with the
+    same counts as jsvx's run of the same stream."""
+    res = transcode(stream, lambda gi, outs: None, device="cpu",
+                    probe_expand=True)
+    ref = j_transcode(stream, lambda gi, outs: None, impl="xla",
+                      probe_expand=True)
+    stages = res.metrics.timers.report()
+    assert set(stages) == {"parse", "wire_wait", "device_dispatch",
+                           "device_wait", "sink", "expand_probe_compile"}
+    assert ({k: v["count"] for k, v in stages.items()}
+            == {k: v["count"]
+                for k, v in ref.metrics.timers.report().items()})
+    assert stages["parse"]["count"] == res.n_gops + 1 == 3
+    assert res.metrics.gauges.keys() == ref.metrics.gauges.keys() == {
+        "width", "height", "wire_bytes", "expand_probe_s_per_gop"}
+    assert res.metrics.gauges["expand_probe_s_per_gop"] > 0
+    quirk = transcode(stream, lambda gi, outs: None, device="cpu",
+                      quirk_oddify_zeros=True)
+    assert set(quirk.metrics.timers.report()) == {
+        "parse", "device_dispatch", "device_wait", "sink"}
+    assert "expand_probe_s_per_gop" not in transcode(
+        stream, device="cpu").metrics.gauges
+
+
+def test_manifest_checkpoint_resume(three_gops, tmp_path):
+    """jsvx's resume case (``tests/test_runtime.py``) on the port."""
+    from jsvx_torch.runtime.multihost import GopManifest
+
+    journal = str(tmp_path / "journal.jsonl")
+    m = GopManifest.from_stream(three_gops, journal_path=journal)
+    got = []
+    # decode only GOP 0 and 2 (process 0 of 2), journaling progress
+    res = transcode(three_gops, lambda gi, outs: got.append(gi),
+                    device="cpu", manifest=m, process_id=0, process_count=2)
+    assert res.n_gops == 2 and m.n_done == 2 and got == [0, 2]
+    # resume in a fresh manifest: nothing pending for process 0
+    m2 = GopManifest.from_stream(three_gops, journal_path=journal)
+    assert m2.n_done == 2
+    assert m2.pending(0, 2) == []
+    assert [s.index for s in m2.pending(1, 2)] == [1]
+    res2 = transcode(three_gops, device="cpu", manifest=m2, process_id=1,
+                     process_count=2)
+    assert res2.n_gops == 1 and res2.n_frames == 3 and m2.complete
+
+
+def test_cpu_wire_is_a_clone_so_its_buffer_can_go_back():
+    """On the CPU the pool is not pinned and a wire is a clone: the pooled
+    buffer may be reused (released in ``wire_wait``) at once."""
+    from jsvx_torch.pipeline.transcode import WireCopier
+
+    pool = tpp.BufferPool()
+    assert not pool.pin
+    buf = pool.acquire((256,), np.uint8)
+    buf[:] = 7
+    host = pool.host_tensor(buf)
+    assert host.data_ptr() == buf.ctypes.data
+    wire, copied = WireCopier(torch.device("cpu")).copy(host)
+    buf[:] = 9
+    assert copied is None and int(wire.sum()) == 7 * 256
+    with pytest.raises(ValueError, match="1-D uint8"):
+        pool.host_tensor(np.zeros((2, 2), np.uint8))
+

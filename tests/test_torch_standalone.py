@@ -103,7 +103,9 @@ def test_ast_scan_finds_no_jsvx_bench_or_jax_import():
     assert len(found) > 40
     for path in ("shard/__init__.py", "shard/mesh.py", "shard/slice_rows.py",
                  "shard/gop_parallel.py", "shard/launch.py",
-                 "tools/synthetic.py", "tools/bench_scaling.py"):
+                 "tools/synthetic.py", "tools/bench_scaling.py",
+                 "pipeline/parallel_parse.py", "tools/bench_parse.py",
+                 "tools/bench_mc.py"):
         assert os.path.join("jsvx_torch", path) in found, path
     assert not {p: r for p, r in found.items() if r}
 
@@ -136,7 +138,9 @@ for name in names:
 for name in ("jsvx_torch.shard", "jsvx_torch.shard.mesh",
              "jsvx_torch.shard.slice_rows", "jsvx_torch.shard.gop_parallel",
              "jsvx_torch.shard.launch", "jsvx_torch.tools.synthetic",
-             "jsvx_torch.tools.bench_scaling"):
+             "jsvx_torch.tools.bench_scaling",
+             "jsvx_torch.pipeline.parallel_parse",
+             "jsvx_torch.tools.bench_parse", "jsvx_torch.tools.bench_mc"):
     assert name in names, name
 import chip_smoke
 
@@ -152,8 +156,19 @@ data = JsvEncoder(48, 32, EncoderConfig(gop_size=2)).encode(frames)
 oracle = decode_stream_oracle(data)
 got = {}
 res = transcode(data, lambda gi, outs: got.__setitem__(gi, outs),
-                device="cpu")
+                device="cpu", probe_expand=True)
 assert res.n_frames == 4 and sorted(got) == [0, 1], res
+assert res.metrics.gauges["expand_probe_s_per_gop"] > 0
+from jsvx_torch.pipeline.packed_parse import parse_stream_packed
+from jsvx_torch.pipeline.parallel_parse import parse_stream_parallel
+from jsvx_torch.runtime.profiler import device_trace
+from jsvx_torch.tools import bench_mc, bench_parse
+assert len(parse_stream_parallel(data).frames) == 4
+assert parse_stream_packed(data).n_frames == 4
+with device_trace(None):
+    assert bench_parse.bench_packed(data, reps=1) > 0
+rows = bench_mc.rows("cpu", 48, 64, (4,), reps=1)
+assert rows[0]["mismatching_pixels"] == 0, rows
 assert len(StreamDecoder(data, device="cpu").decode().frames) == 4
 for scan in (True, False):
     d = Decoder(PlayerConfig(use_gop_scan=scan), device="cpu")
@@ -418,6 +433,135 @@ def test_fixture_pattern_equals_bench():
         os.path.join(REPO, "build", "jsvx_torch") + os.sep)
 
 
+@pytest.mark.parametrize("name", ["small", "yuva", "full_pel_custom_q"])
+def test_parse_stream_parallel_equal(streams, name):
+    """The picture-parallel parse: every field of every picture equal to
+    jsvx's parallel parse and to the port's serial ``parse_all``, the GOP
+    starts equal to jsvx's."""
+    from jsvx.pipeline.parallel_parse import parse_stream_parallel as jpar
+
+    from jsvx_torch.pipeline.parallel_parse import parse_stream_parallel
+    from jsvx_torch.pipeline.stream import StreamDecoder
+
+    data, _ = streams[name]
+    got = parse_stream_parallel(data, n_threads=4)
+    want = jpar(data, n_threads=4)
+    serial = StreamDecoder(data, device="cpu").parse_all()
+    assert got.gop_starts == want.gop_starts and len(got.gop_starts) >= 1
+    assert len(got.frames) == len(want.frames) == len(serial) > 0
+    _same_value([getattr(got.seq, f) for f in ("mb_width", "mb_height")],
+                [getattr(want.seq, f) for f in ("mb_width", "mb_height")],
+                "seq")
+    for i, (g, w, s) in enumerate(zip(got.frames, want.frames, serial)):
+        for f in dataclasses.fields(w):
+            _same_value(getattr(w, f.name), getattr(g, f.name),
+                        f"picture {i} {f.name} vs jsvx")
+        # the serial parse emits no per-pixel dequant sideband
+        for f in ("levels", "lnz", "mb_mv", "mb_quant", "mb_intra",
+                  "mb_rep_add", "gop_time_ms", "picture_type"):
+            _same_value(getattr(s, f), getattr(g, f),
+                        f"picture {i} {f} vs serial")
+
+
+@pytest.mark.parametrize("name", ["small", "yuva"])
+def test_parse_stream_packed_equal(streams, name):
+    """The dense stacked parse of a stream: jsvx's with ``mv_capacity=0``
+    on every field the two share (jsvx's own capacity field aside)."""
+    import jsvx.pipeline.packed_parse as jpp
+
+    import jsvx_torch.pipeline.packed_parse as tpp
+
+    def zeroed(pool_cls):
+        # coefficient planes are not cleared between uses (positions past
+        # a block's lnz are never read), so compare fresh zeroed buffers
+        return type("ZeroPool", (pool_cls,), {
+            "acquire": lambda self, shape, dtype: np.zeros(shape, dtype)})()
+
+    def leaves(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, path + (k,))
+            else:
+                yield path + (k,), v
+
+    data, _ = streams[name]
+    got = tpp.parse_stream_packed(data, n_threads=2,
+                                  pool=zeroed(tpp.BufferPool))
+    want = jpp.parse_stream_packed(data, n_threads=2, mv_capacity=0,
+                                   pool=zeroed(jpp.BufferPool))
+    assert got.n_frames == want.n_frames > 0
+    assert len(got.gops) == len(want.gops) >= 2
+    for g, w in zip(got.gops, want.gops):
+        assert g.index == w.index
+        gl, wl = dict(leaves(g.stacked)), dict(leaves(w.stacked))
+        assert gl.keys() == wl.keys()
+        for path, leaf in wl.items():
+            _same_value(leaf, gl[path], f"GOP {g.index} {path}")
+        assert len(g.fts) == len(w.fts)
+        for fg, fw in zip(g.fts, w.fts):
+            _same_value([fw.levels, fw.mb_mv, fw.gop_time_ms],
+                        [fg.levels, fg.mb_mv, fg.gop_time_ms], "fts")
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    from jsvx_torch.runtime.profiler import TRACE_FILE, device_trace
+
+    with device_trace(None, "cpu"):
+        pass
+    with device_trace("", "cpu"):
+        pass
+    assert not os.listdir(tmp_path)
+    with device_trace(str(tmp_path / "t"), "cpu"):
+        torch.ones(64).cumsum(0)
+    with open(tmp_path / "t" / TRACE_FILE) as f:
+        names = {e.get("name") for e in __import__("json").load(f)[
+            "traceEvents"]}
+    assert "aten::cumsum" in names
+
+
+def test_bench_parse_stream_and_runs():
+    """``tools/bench_parse.py``: jsvx's stream, byte for byte, and each
+    bench at a small size."""
+    import jsvx.tools.bench_parse as jbench
+
+    from jsvx_torch.tools import bench_parse
+
+    kw = dict(n_frames=4, h=48, w=64, gop=2)
+    data = bench_parse.make_stream(**kw)
+    assert data == jbench.make_stream(**kw)
+    for native in (True, False):
+        res = bench_parse.bench(data, use_native=native)
+        assert res["pictures"] == 4 and res["mb_per_s"] > 0
+    assert bench_parse.bench_parallel(data, reps=1) > 0
+    assert bench_parse.bench_packed(data, reps=1) > 0
+    assert bench_parse.bench_packed(data, reps=1, slice_threads=2,
+                                    n_threads=1) > 0
+
+
+def test_bench_mc_rows_at_a_small_size(capsys):
+    """``tools/bench_mc.py`` on the CPU: exactly K distinct vectors per
+    plane, the wrapper (its plain version here) equal to the plain
+    version; the command prints jsvx's keys."""
+    from jsvx_torch.tools import bench_mc
+
+    rows = bench_mc.rows("cpu", 48, 64, (8, 32, 48), reps=1)
+    assert [(r["impl"], r["k"]) for r in rows] == [
+        (impl, k) for k in (8, 32, 48)
+        for impl in ("predict_plane_mc", "predict_plane")]
+    assert all(r["distinct"] == r["k"] and r["ms_per_plane"] > 0
+               for r in rows)
+    assert all(r["mismatching_pixels"] == 0 for r in rows[::2])
+    _, mv, _ = bench_mc.plane_inputs(48, 64, 48, "cpu")
+    assert int(mv.abs().max()) <= bench_mc.MV_RANGE
+    with pytest.raises(ValueError, match="distinct vectors"):
+        bench_mc.plane_inputs(48, 64, 49, "cpu")
+    bench_mc.main(["--device", "cpu", "--shape", "160x128"])
+    out = __import__("json").loads(capsys.readouterr().out)
+    assert {"platform", "plane", "rows"} <= out.keys()
+    assert out["platform"] == "cpu" and out["plane"] == "160x128 luma"
+    assert [r["k"] for r in out["rows"][::2]] == list(bench_mc.KS)
+
+
 @pytest.mark.parametrize("name", ["small", "small_no_key_map", "yuva"])
 def test_gop_manifests_equal(streams, name, tmp_path):
     data, _ = streams[name]
@@ -512,21 +656,22 @@ def test_player_events_equal_jsvx(streams, name, backend, rgb):
     ("bitstream.container", "ContainerMeta"),
     ("bitstream.parser", "SequenceInfo"),
     ("runtime.multihost", "initialize"), ("shard.mesh", "build_mesh"),
-    ("shard.slice_rows", "decode_gop_rows_sharded")], ids=lambda p: p[0])
+    ("shard.slice_rows", "decode_gop_rows_sharded"),
+    ("pipeline.parallel_parse", "ParsedStream"),
+    ("tools.bench_parse", "bench_packed"), ("tools.bench_mc", "main")],
+    ids=lambda p: p[0])
 def test_copied_modules_keep_jsvx_public_names(pair):
     """Each copied or ported module defines the names its jsvx original
     does: apart from the modules it imports and JAX's own objects (a JAX
-    ``Mesh``, ``PartitionSpec``), which the port has no use for, the
-    profiler's JAX trace, and the whole-plane decode that only jsvx's
-    ``mc_impl="gather"`` band route calls (the port's one band route is
-    the two kernels)."""
+    ``Mesh``, ``PartitionSpec``), which the port has no use for, and the
+    whole-plane decode that only jsvx's ``mc_impl="gather"`` band route
+    calls (the port's one band route is the two kernels)."""
     mod, cls = pair
     j = importlib.import_module(f"jsvx.{mod}")
     t = importlib.import_module(f"jsvx_torch.{mod}")
     names = {k for k, v in vars(j).items() if not k.startswith("_")
              and not isinstance(v, type(os))
              and not str(getattr(v, "__module__", "")).startswith("jax")}
-    names -= {"device_trace"}
     if mod == "shard.slice_rows":
         names -= {"decode_frame_plane"}
     assert names <= set(vars(t)), names - set(vars(t))
@@ -581,7 +726,7 @@ def test_entry_points_default_to_the_card():
     assert tapi.Decoder().device == torch.device("cuda")
 
 
-@pytest.mark.parametrize("cmd", ["decode", "play"])
+@pytest.mark.parametrize("cmd", ["decode", "play", "bench", "warm"])
 def test_cli_fails_without_a_card_unless_asked_for_the_cpu(
         cmd, streams, tmp_path, monkeypatch, capsys):
     """No silent fall back to the CPU: without ``--device`` the command
@@ -591,8 +736,10 @@ def test_cli_fails_without_a_card_unless_asked_for_the_cpu(
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     clip = tmp_path / "clip.jsv"
     clip.write_bytes(streams["tiny"][1])
-    args = ([cmd, str(clip), str(tmp_path / "out")] if cmd == "decode"
-            else [cmd, str(clip), "--rate", "8"])
+    args = {"decode": [cmd, str(clip), str(tmp_path / "out")],
+            "play": [cmd, str(clip), "--rate", "8"],
+            "bench": [cmd, str(clip), "--trace", str(tmp_path / "out")],
+            "warm": [cmd, str(clip)]}[cmd]
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli_main(args)
     assert not (tmp_path / "out").exists()
