@@ -21,10 +21,16 @@ each printing its own lines:
    motion vectors in one P frame, a 48x64 stream whose first GOP only the
    dense wire can carry, a CIF stream and a 4-plane YUVA stream; the MC
    kernel also on the tall-pad and out-of-bounds clamp cases of
-   ``tests/test_fast_paths.py``, one plane and whole pictures;
-4. the paths end to end on the card, each kernel counted:
+   ``tests/test_fast_paths.py``, one plane and whole pictures; the compact
+   wire's expansion kernel (one launch per GOP, and its one-component
+   case) against its plain version on every compact GOP of the 1080p
+   fixture, the 320x320, CIF and YUVA streams, 0 differing elements on
+   every leaf;
+4. the paths end to end on the card, each kernel counted (and no plain
+   expansion of the compact wire on any of them):
    ``jsvx_torch.transcode`` of the 1080p fixture (the fused kernel once
-   per picture), bit-equal to the same call on the CPU;
+   per picture, the expansion kernel once per GOP), bit-equal to the same
+   call on the CPU;
    ``StreamDecoder(...).decode(impl="two_kernel")`` (the MC and
    reconstruction kernels once per picture each, no torch sideband
    expansion), bit-equal to the CPU and to ``impl="fused"`` on the card;
@@ -43,8 +49,12 @@ each printing its own lines:
    end-to-end runs), each with the card's name and power limit: each
    kernel per 1080p picture, warm in L2 and with L2 flushed between
    calls, in turns with its first design, beside the bytes it must move
-   and its bound; the GOP decode of both routes (the two-kernel route
-   also with its first designs and the torch sideband expansion),
+   and its bound; the expansion kernel per 1080p GOP, warm and cold, in
+   turns with its plain version, beside its bytes and bound; the GOP
+   decode of both routes (the fused route also with the plain expansion,
+   the two-kernel route also with its first designs and the torch
+   sideband expansion), ``transcode`` in turns with the same loop on the
+   plain expansion,
    ``transcode``, ``StreamDecoder``, the Decoder, the Player and colour;
 6. row-band and GOP sharding (``jsvx_torch.shard``): a (gop 1, rows 1)
    mesh without a process group over both GOPs of the 1080p fixture; the
@@ -66,13 +76,14 @@ each printing its own lines:
    wire copied from pinned memory on a copy stream, delivery one GOP
    behind), each route, the quirk, the dirty stream and the fixture's
    GOPs repeated to 8: bit-equal to the CPU and to ``StreamDecoder`` on
-   the card, one launch per picture per kernel, the sink's planes kept on
+   the card, one launch per picture per kernel and one expansion launch
+   per compact GOP, the sink's planes kept on
    the card and intact after the run, every pooled buffer pinned, no
    sync warning (``torch.cuda.set_sync_debug_mode``) after GOP 0's
    dispatch outside the deliberate waits, the stage split per GOP; its
    frames/s with a sink that keeps the planes and one that copies them;
    ``probe_expand``'s gauge beside phase 5's expansion time; ``python -m
-   jsvx_torch bench --trace`` (both routes), whose traces name the three
+   jsvx_torch bench --trace`` (both routes), whose traces name the four
    kernels; ``warm --shape 1920x1088``; ``tools/bench_mc.py`` (the MC
    kernel against its plain version at up to 300 distinct vectors); the
    fixture truncated and bit-flipped through the Decoder and
@@ -105,12 +116,13 @@ from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.bitstream.bitio import BitReader
 from jsvx_torch.bitstream.container import parse_container_header
 from jsvx_torch.coding.tables import START_SEQUENCE
-from jsvx_torch.kernels import build, fused, mc, recon
+from jsvx_torch.kernels import build, expand, fused, mc, recon
 from jsvx_torch.kernels.color import ycbcr_to_rgb
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
                                        decode_frame_planes, frame_comp_keys,
                                        make_constants, predict_plane)
 from jsvx_torch.kernels.expand import expand_compact_gop
+from jsvx_torch.pipeline import gop as gop_module
 from jsvx_torch.pipeline import packed_parse
 from jsvx_torch.pipeline.gop import (FRAME_DECODERS, decode_gop,
                                      decode_gop_wire, frame_at, zero_refs)
@@ -136,6 +148,8 @@ MC_SOURCE = "jsvx_torch/csrc/mc.cu"
 MC_REPLACES = "jsvx/kernels/pallas_mc.py:35"
 RECON_SOURCE = "jsvx_torch/csrc/recon.cu"
 RECON_REPLACES = "jsvx/kernels/pallas_decode.py:78"
+EXPAND_SOURCE = "jsvx_torch/csrc/expand.cu"
+EXPAND_REPLACES = "jsvx/kernels/expand.py:49"
 N_TIMED = 30
 N_E2E = 10
 SLEEP_MS = 25.0
@@ -417,6 +431,64 @@ def kernels_vs_plain(label: str, data: bytes, gi: int, device,
     return worst
 
 
+def expand_vs_plain(label: str, data: bytes, device) -> int:
+    """Every GOP of ``data`` that the compact wire carries, on the card:
+    the expansion kernel (one launch for the GOP) against its plain
+    version on the same wire, and each component's one-component launch
+    (``expand_levels``) against the plain levels; every leaf of the same
+    dtype and shape and 0 differing elements.  Returns the max |kernel -
+    plain| over the leaves."""
+    arr = np.frombuffer(data, np.uint8)
+    meta, seq, groups = walk_stream(data)
+    mb_h, mb_w = seq.mb_height, seq.mb_width
+    worst, n_compact = 0, 0
+    for gi, group in enumerate(groups):
+        g = parse_gop_compact(arr, group, seq, meta, BufferPool(), {})
+        if g.dirty:
+            continue
+        n_compact += 1
+        spec = wire_spec(g.stacked)
+        tree = unflatten_wire(torch.from_numpy(
+            flatten_wire(g.stacked, spec)).to(device), spec)
+        before = expand.launches
+        got = expand.expand_compact_gop(tree, mb_h, mb_w)
+        check(expand.launches == before + 1, f"{label} GOP {gi}: "
+                                             f"{expand.launches - before} "
+                                             f"expansion launches")
+        want = expand.expand_compact_gop_plain(tree, mb_h, mb_w)
+        levels = {k: expand.expand_levels(c["cpk"], c["n"], c["counts"],
+                                          mb_h, mb_w, k in ("y", "a"))
+                  for k, c in tree["coef"].items()}
+        sync(device)
+        pairs = [((k, f), got[k][f], want[k][f]) for k in tree["coef"]
+                 for f in got[k]]
+        pairs += [((k, "levels_one_component"), v, want[k]["levels"])
+                  for k, v in levels.items()]
+        check(set(got) == set(want) and all(
+            set(got[k]) == set(want[k]) for k in tree["coef"]),
+              f"{label} GOP {gi}: keys differ")
+        n_diff, err = {}, 0
+        for (k, f), a, b in pairs:
+            check(a.dtype == b.dtype and a.shape == b.shape,
+                  f"{label} GOP {gi} {k}.{f}: {a.dtype} {tuple(a.shape)} "
+                  f"vs {b.dtype} {tuple(b.shape)}")
+            n_diff[f"{k}.{f}"] = int((a != b).sum())
+            if a.numel():
+                err = max(err, int((a.int() - b.int()).abs().max()))
+        emit("expand_vs_plain", stream=label, gop=gi,
+             frames=int(tree["is_p"].shape[0]),
+             components=list(tree["coef"]),
+             entries={k: int(c["n"].cpu()) for k, c in tree["coef"].items()},
+             mismatching_elements=sum(n_diff.values()),
+             leaves=len(n_diff), max_abs_err=err)
+        check(not any(n_diff.values()),
+              f"{label} GOP {gi}: elements differ {n_diff}")
+        worst = max(worst, err)
+    check(n_compact > 0 or label.endswith("dirty"),
+          f"{label}: no GOP on the compact wire")
+    return worst
+
+
 def mc_edge_cases(device) -> int:
     """The MC kernel vs its plain version and its first design on the
     cases of tests/test_fast_paths.py: a 24x128 plane with vectors (141,
@@ -504,13 +576,36 @@ def stream_frames(data: bytes, device, impl: str) -> list:
 
 
 def counted(run):
-    """``run()`` with every kernel's launch count and the count of torch
-    sideband expansions set to 0 just before it; returns (its result, the
-    counts just after)."""
+    """``run()`` with every kernel's launch count, the count of torch
+    sideband expansions and that of plain (torch) coefficient expansions
+    set to 0 just before it; returns (its result, the counts just
+    after)."""
     fused.launches = mc.launches = recon.launches = recon.expansions = 0
+    expand.launches = expand.plain_calls = 0
     out = run()
     return out, {"fused": fused.launches, "mc": mc.launches,
-                 "recon": recon.launches, "expansions": recon.expansions}
+                 "recon": recon.launches, "expansions": recon.expansions,
+                 "expand": expand.launches,
+                 "expand_plain": expand.plain_calls}
+
+
+def want_counts(fused: int = 0, mc: int = 0, recon: int = 0,
+                expand: int = 0) -> dict:
+    """The counts :func:`counted` must give for a run on the card: the
+    launches of each kernel as given, and never a torch sideband
+    expansion or a plain coefficient expansion."""
+    return {"fused": fused, "mc": mc, "recon": recon, "expansions": 0,
+            "expand": expand, "expand_plain": 0}
+
+
+def compact_gops(data: bytes) -> int:
+    """The GOPs of ``data`` that the compact wire carries (the others fall
+    back to the dense wire): the expansion kernel's launches in a
+    ``transcode`` of it."""
+    arr = np.frombuffer(data, np.uint8)
+    meta, seq, groups = walk_stream(data)
+    return sum(not parse_gop_compact(arr, g, seq, meta, BufferPool(),
+                                     {}).dirty for g in groups)
 
 
 def mismatching_pixels(a: list, b: list) -> int:
@@ -525,14 +620,16 @@ def mismatching_pixels(a: list, b: list) -> int:
     return n
 
 
-def check_path(label: str, run, device, n_planes: int) -> dict:
+def check_path(label: str, run, device, n_planes: int,
+               n_compact: int) -> dict:
     """One path through ``impl="two_kernel"`` on the card (the MC and the
     reconstruction kernel once per picture each, the fused kernel never,
     and no torch sideband expansion), through ``impl="fused"`` on the
     card (the fused kernel once per picture), and through ``"two_kernel"``
-    on the CPU: all three bit-equal.  ``run(device, impl)`` returns the
-    decoded frames as numpy.  Returns the two-kernel run's launch
-    counts."""
+    on the CPU: all three bit-equal; on both routes the expansion kernel
+    once per GOP of the ``n_compact`` the compact wire carries, and no
+    plain expansion.  ``run(device, impl)`` returns the decoded frames as
+    numpy.  Returns the two-kernel run's launch counts."""
     two, n_two = counted(lambda: run(device, "two_kernel"))
     n_f = len(two)
     fz, n_fz = counted(lambda: run(device, "fused"))
@@ -542,12 +639,13 @@ def check_path(label: str, run, device, n_planes: int) -> dict:
     emit("path", path=label, frames=n_f, planes=n_planes,
          two_kernel_launches=n_two, fused_launches=n_fz,
          expected_launches={"two_kernel": {"mc": n_f, "recon": n_f},
-                            "fused": n_f, "expansions": 0},
+                            "fused": n_f, "expand": n_compact,
+                            "expansions": 0, "expand_plain": 0},
          vs_fused_on_card_mismatching_pixels=d_fused,
          vs_cpu_mismatching_pixels=d_cpu)
-    check(n_two == {"fused": 0, "mc": n_f, "recon": n_f, "expansions": 0}
+    check(n_two == want_counts(mc=n_f, recon=n_f, expand=n_compact)
           and n_f > 0, f"{label}: launches {n_two} for {n_f} frames")
-    check(n_fz == {"fused": n_f, "mc": 0, "recon": 0, "expansions": 0},
+    check(n_fz == want_counts(fused=n_f, expand=n_compact),
           f"{label}: fused route launches {n_fz}")
     check(d_fused == 0, f"{label}: two-kernel and fused routes differ on "
                         f"the card in {d_fused} pixels")
@@ -623,7 +721,7 @@ def check_decoder(label: str, data: bytes, dev, n_planes: int,
              planes=n_planes, launches=n, expected_fused=n_f,
              vs_stream_decoder_mismatching_pixels=d_stream,
              vs_cpu_mismatching_pixels=d_cpu)
-        check(n == {"fused": n_f, "mc": 0, "recon": 0, "expansions": 0},
+        check(n == want_counts(fused=n_f),
               f"{label} Decoder gop_batch={scan}: launches {n}")
         check(not d_stream and d_cpu == 0,
               f"{label} Decoder gop_batch={scan}: differs from the stream "
@@ -1066,6 +1164,130 @@ def two_kernel_picture_times(label: str, data: bytes, dev,
         refs = fused.decode_frame_planes_fused(frame, refs, consts)
     sync(dev)
     return rows
+
+
+@contextlib.contextmanager
+def plain_expansion_route():
+    """Inside the block the GOP loop expands a compact wire with the plain
+    version (torch ops on the card), as the port did before the expansion
+    kernel, for the timings of that route; restored after it, whatever
+    happens."""
+    real = gop_module.expand_compact_gop
+    gop_module.expand_compact_gop = expand.expand_compact_gop_plain
+    try:
+        yield
+    finally:
+        gop_module.expand_compact_gop = real
+
+
+def transcode_vs_plain_expansion(data: bytes, dev, card: str) -> dict:
+    """``transcode`` of ``data`` (the ``.cpu()`` sink) with the expansion
+    kernel and with the plain expansion, in turns in this call: plain,
+    kernel, kernel, plain, N_E2E runs each after a warm-up (host clock);
+    frames/s and the stages per GOP of each route, and the share of
+    same-position run pairs the kernel's route wins."""
+    runs: dict = {"plain": [], "kernel": []}
+    stages: dict = {"plain": {}, "kernel": {}}
+    n_gops = n_frames = 0
+    for route in ("plain", "kernel", "kernel", "plain"):
+        ctx = (plain_expansion_route() if route == "plain"
+               else contextlib.nullcontext())
+        with ctx:
+            for rep in range(N_E2E + 1):
+                m = Metrics()
+                sync(dev)
+                t0 = time.perf_counter()
+                r = transcode(data, lambda gi, outs: [o.cpu() for o in outs],
+                              device=dev, metrics=m)
+                sync(dev)
+                if rep:                    # rep 0 is the warm-up
+                    runs[route].append(time.perf_counter() - t0)
+                    for k, v in m.timers.totals.items():
+                        stages[route][k] = stages[route].get(k, 0.0) + v
+        n_gops, n_frames = r.n_gops, r.n_frames
+    out = {route: dict(
+        frames_per_s=n_frames / statistics.median(w),
+        median_s=statistics.median(w), wall_s_runs=[min(w), max(w)],
+        stage_s_per_gop={k: v / len(w) / n_gops
+                         for k, v in stages[route].items()})
+        for route, w in runs.items()}
+    wins = sum(k < p for k, p in zip(runs["kernel"], runs["plain"]))
+    emit("end_to_end_vs_plain_expansion", card=card, frames=n_frames,
+         gops=n_gops, **out, kernel_wins=wins, pairs=len(runs["kernel"]),
+         reps=2 * N_E2E, what="transcode with the expansion kernel against "
+         "the same loop with the plain (torch) expansion, in turns: plain, "
+         "kernel, kernel, plain; .cpu() sink")
+    return out
+
+
+def expand_work(tree: dict, mb_h: int, mb_w: int) -> int:
+    """The bytes one GOP's expansion must move, from this wire: read, each
+    entry below n once (2 B), n (4 B) and the counts (1 B a block) of each
+    component, and the per-MB sideband once (3 B and a 4 B vector per MB
+    and frame) when a luma-like component repeats it; written, 2 B of
+    levels per pixel, 1 B of lnz per block, and per block of a luma-like
+    component 7 B of grids (q, intra, rep_add, vector)."""
+    n = int(tree["is_p"].shape[0])
+    total, luma_seen = 0, False
+    for key, c in tree["coef"].items():
+        luma = key in ("y", "a")
+        blocks = n * expand.comp_blocks(mb_h, mb_w, luma)
+        entries = max(0, min(int(c["n"].cpu()), c["cpk"].shape[0]))
+        total += 2 * entries + 4 + blocks + 2 * 64 * blocks + blocks
+        if luma:
+            total += 7 * blocks
+            luma_seen = True
+    return total + (7 * n * mb_h * mb_w if luma_seen else 0)
+
+
+def expand_times(tree: dict, mb_h: int, mb_w: int, dev, card: str) -> dict:
+    """The expansion kernel per GOP of a resident wire: warm in L2 (20
+    launches back to back behind a spin) and with L2 flushed before each
+    launch, in turns with its plain version (torch ops, 4 calls behind a
+    spin; ``plain_host_ahead_share`` says whether the host kept ahead):
+    plain, kernel, kernel, plain; the bytes it must move and the bound.
+    One ``kernel_time`` line."""
+    fns = {"kernel": lambda: expand.expand_compact_gop(tree, mb_h, mb_w),
+           "plain": lambda: expand.expand_compact_gop_plain(tree, mb_h,
+                                                            mb_w)}
+    t = {name: dict(warm=[], cold=[], runs=[], cold_runs=[], ahead=1.0)
+         for name in fns}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        warm, ahead, _ = device_ms(fns[name], dev,
+                                   20 if name == "kernel" else 4)
+        r = t[name]
+        r["warm"] += warm
+        r["runs"].append(statistics.median(warm))
+        r["ahead"] = min(r["ahead"], ahead)
+        if name == "kernel":
+            cold = cold_ms(fns[name], dev)
+            r["cold"] += cold
+            r["cold_runs"].append(statistics.median(cold))
+    work = expand_work(tree, mb_h, mb_w)
+    b_ms, b_by = bound(work, 0)
+    row = dict(ms=statistics.median(t["kernel"]["warm"]),
+               cold_ms=statistics.median(t["kernel"]["cold"]),
+               plain_ms=statistics.median(t["plain"]["warm"]),
+               bound_ms=b_ms, bound_by=b_by, bytes=work)
+    emit("kernel_time", kernel="expand_gop", stream="1080p", card=card,
+         frames=int(tree["is_p"].shape[0]), components=list(tree["coef"]),
+         entries={k: int(c["n"].cpu()) for k, c in tree["coef"].items()},
+         launches_per_gop=1, kernel_ms=row["ms"],
+         kernel_cold_ms=row["cold_ms"], kernel_ms_runs=t["kernel"]["runs"],
+         kernel_cold_ms_runs=t["kernel"]["cold_runs"],
+         kernel_host_ahead_share=t["kernel"]["ahead"],
+         plain_ms=row["plain_ms"], plain_ms_runs=t["plain"]["runs"],
+         plain_host_ahead_share=t["plain"]["ahead"],
+         speedup_vs_plain=row["plain_ms"] / row["ms"], bytes=work,
+         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / row["ms"],
+         bound_share_cold=b_ms / row["cold_ms"],
+         achieved_gb_s=work / (row["ms"] * 1e-3) / 1e9,
+         achieved_gb_s_cold=work / (row["cold_ms"] * 1e-3) / 1e9,
+         library_ms=None, library="no PyTorch call computes it: the plain "
+         "version is some 20 torch ops a component", reps=2 * N_TIMED,
+         l2="warm: back to back behind a spin; cold: a 64 MB write before "
+            "each call")
+    return row
 
 
 def decoder_rate(data: bytes, dev, scan: bool, card: str) -> dict:
@@ -1531,8 +1753,8 @@ def check_shard_rank(r: dict, backend: str, n_f: int) -> None:
 
     def want(route, frames):
         if route == "fused":
-            return {"fused": frames, "mc": 0, "recon": 0, "expansions": 0}
-        return {"fused": 0, "mc": frames, "recon": frames, "expansions": 0}
+            return want_counts(fused=frames)
+        return want_counts(mc=frames, recon=frames)
 
     for key, route in (("rows", "two_kernel"), ("gops_2d", "two_kernel"),
                        ("gop_parallel", "fused"), ("all_gather",
@@ -1574,8 +1796,7 @@ def shard_phase(data: bytes, fix: str, dev, card: str) -> dict:
     emit("shard_mesh_of_one", groups=[g is None for g in
                                       mesh1.groups.values()],
          gops=list(g1), launches=n, mismatching_pixels=d1)
-    check(n == {"fused": 0, "mc": 2 * n_f, "recon": 2 * n_f,
-                "expansions": 0} and d1 == 0,
+    check(n == want_counts(mc=2 * n_f, recon=2 * n_f) and d1 == 0,
           f"1x1 mesh: launches {n}, {d1} pixels differ")
 
     bands, err = band_kernel_times(gops[0], refs[0], consts, dev, card)
@@ -1657,7 +1878,7 @@ WARM_SHAPE = "1920x1088"
 N_FLIPPED = 6
 #: the kernels' symbols a ``bench --trace`` must name
 KERNEL_SYMBOLS = ("fused_decode_picture_kernel", "mc_picture_kernel",
-                  "recon_picture_kernel")
+                  "recon_picture_kernel", "expand_gop_kernel")
 #: the stages in which the host waits on purpose (an event's synchronise)
 WAIT_STAGES = ("wire_wait", "device_wait")
 #: where the bench subprocesses write their traces
@@ -1762,18 +1983,19 @@ def check_pipelined(label: str, data: bytes, dev, impl: str, quirk: bool,
     """The pipelined ``transcode`` on the card against ``want`` (the CPU's
     planes) and against ``StreamDecoder`` on the card: 0 differing pixels,
     the planes the sink kept still equal after the run, the launches of the
-    route once per picture, every pooled buffer pinned, no sync warning
-    after GOP 0's dispatch outside the deliberate waits; its stage split
-    per GOP."""
+    route once per picture and the expansion kernel's once per compact GOP
+    (none with the quirk, whose route is the dense wire), no plain
+    expansion, every pooled buffer pinned, no sync warning after GOP 0's
+    dispatch outside the deliberate waits; its stage split per GOP."""
     w = watched_transcode(data, dev, impl, quirk)
     res, n = w["res"], w["launches"]
     n_f = res.n_frames
     stream = stream_frames_quirk(data, dev, impl, quirk)
     d_cpu = mismatching_pixels(w["frames"], want)
     d_stream = mismatching_pixels(w["frames"], stream)
-    expected = ({"fused": n_f, "mc": 0, "recon": 0, "expansions": 0}
-                if impl == "fused" else
-                {"fused": 0, "mc": n_f, "recon": n_f, "expansions": 0})
+    n_compact = 0 if quirk else compact_gops(data)
+    expected = (want_counts(fused=n_f, expand=n_compact) if impl == "fused"
+                else want_counts(mc=n_f, recon=n_f, expand=n_compact))
     per_gop = {k: v["total_s"] / res.n_gops for k, v in w["stages"].items()}
     emit("pipelined_transcode", stream=label, impl=impl, quirk=quirk,
          card=card, frames=n_f, gops=res.n_gops, launches=n,
@@ -2074,18 +2296,26 @@ def smoke(dev: torch.device) -> None:
         w = kernels_vs_plain(label, data, gi, dev, quirk_frames)
         worst = {k: max(v, w[k]) for k, v in worst.items()}
     worst["mc"] = max(worst["mc"], mc_edge_cases(dev))
+    worst["expand"] = max(expand_vs_plain(label, data, dev)
+                          for label, data in (
+                              ("1080p", data_1080), ("320x320-256mv", hm),
+                              ("48x64-dirty", dirty), ("cif-352x288", cif),
+                              ("yuva-128x96", yuva)))
 
     # ---- 4. the slice -------------------------------------------------------
-    fused.launches = 0
-    cuda_frames, res = collect(data_1080, dev)
-    launches = fused.launches
+    n_compact = compact_gops(data_1080)
+    (cuda_frames, res), main = counted(lambda: collect(data_1080, dev))
+    launches = main["fused"]
     meta, seq, _ = walk_stream(data_1080)
     n_planes = meta.n_components
     emit("transcode", device=str(dev), frames=res.n_frames, gops=res.n_gops,
-         planes=n_planes, launches=launches,
-         expected_launches=res.n_frames)
-    check(launches == res.n_frames > 0,
-          f"{launches} kernel launches for {res.n_frames} pictures")
+         planes=n_planes, launches=main,
+         expected_launches=want_counts(fused=res.n_frames,
+                                       expand=n_compact))
+    check(main == want_counts(fused=res.n_frames, expand=n_compact)
+          and launches > 0 and n_compact == res.n_gops,
+          f"{main} launches for {res.n_frames} pictures, {n_compact} of "
+          f"{res.n_gops} GOPs compact")
     cpu_frames, _ = collect(data_1080, "cpu")
     n_diff = 0
     for fc, fh in zip(cuda_frames, cpu_frames):
@@ -2103,14 +2333,16 @@ def smoke(dev: torch.device) -> None:
     # the two-kernel route: the stream decoder is its main path
     n_two = check_path(
         "stream_decoder", lambda d, impl: stream_frames(data_1080, d, impl),
-        dev, n_planes)
+        dev, n_planes, 0)
     check_path("transcode_quirk",
                lambda d, impl: collect(data_1080, d, impl, quirk=True)[0],
-               dev, n_planes)
+               dev, n_planes, 0)
     check_path("transcode_two_kernel",
-               lambda d, impl: collect(data_1080, d, impl)[0], dev, n_planes)
+               lambda d, impl: collect(data_1080, d, impl)[0], dev, n_planes,
+               n_compact)
     check_path("transcode_dirty_gop",
-               lambda d, impl: collect(dirty, d, impl)[0], dev, 3)
+               lambda d, impl: collect(dirty, d, impl)[0], dev, 3,
+               compact_gops(dirty))
     check_vs_oracle("cif-352x288", cif, dev, "two_kernel")
     check_vs_oracle("yuva-128x96", yuva, dev, "two_kernel")
 
@@ -2140,13 +2372,22 @@ def smoke(dev: torch.device) -> None:
         return decode_gop_wire(wire, spec, zr, consts, seq.mb_height,
                                seq.mb_width)
 
-    def expand():
+    def expand_wire():
         return expand_compact_gop(unflatten_wire(wire, spec), seq.mb_height,
                                   seq.mb_width)
 
+    def gop_plain_expansion():
+        zr = zero_refs(seq.coded_height, seq.coded_width, meta.n_components,
+                       dev)
+        dense = expand.expand_compact_gop_plain(
+            unflatten_wire(wire, spec), seq.mb_height, seq.mb_width)
+        return decode_gop(dense, zr, consts)
+
     gop_dev, gop_cov, _ = device_ms(gop, dev, 2)
-    exp_dev, exp_cov, _ = device_ms(expand, dev, 4)
+    exp_dev, exp_cov, _ = device_ms(expand_wire, dev, 4)
     gop_call = call_ms(gop, dev)
+    old_dev, old_cov, _ = device_ms(gop_plain_expansion, dev, 2)
+    old_call = call_ms(gop_plain_expansion, dev)
     emit("device_gop_decode", card=card, frames=n_f,
          gop_ms=statistics.median(gop_call),
          frames_per_s=n_f / (statistics.median(gop_call) * 1e-3),
@@ -2155,7 +2396,15 @@ def smoke(dev: torch.device) -> None:
          host_ahead_share=min(gop_cov, exp_cov),
          device_idle_share=1 - statistics.median(gop_dev)
          / statistics.median(gop_call),
-         reps=N_TIMED, what="unflatten + expand + GOP loop, resident wire")
+         plain_expansion=dict(
+             device_busy_ms=statistics.median(old_dev),
+             gop_ms=statistics.median(old_call),
+             host_ahead_share=old_cov),
+         reps=N_TIMED, what="unflatten + expand (the kernel; "
+                            "plain_expansion: its plain version, the route "
+                            "before the kernel) + GOP loop, resident wire")
+    expand_t = expand_times(unflatten_wire(wire, spec), seq.mb_height,
+                            seq.mb_width, dev, card)
 
     m = Metrics()
     wall = []
@@ -2182,6 +2431,7 @@ def smoke(dev: torch.device) -> None:
               "device_dispatch, device_wait (one GOP behind), sink (copies "
               "the planes to the host, so it also waits for the next GOP)")
 
+    transcode_vs_plain_expansion(data_1080, dev, card)
     with first_design_route():
         two_kernel_gop_times(wire, spec, n_f, seq, meta, consts, dev, card,
                              statistics.median(gop_dev),
@@ -2229,7 +2479,14 @@ def smoke(dev: torch.device) -> None:
          "plain_ms": two_t["recon"]["plain_ms"],
          "bound_ms": two_t["recon"]["bound_ms"],
          "bound_by": two_t["recon"]["bound_by"],
-         "library_ms": None}]}), flush=True)
+         "library_ms": None},
+        {"name": "expand_gop", "route": "cuda",
+         "source": EXPAND_SOURCE, "replaces": EXPAND_REPLACES,
+         "launches": main["expand"], "max_abs_err": worst["expand"],
+         "ms": expand_t["ms"], "plain_ms": expand_t["plain_ms"],
+         "bound_ms": expand_t["bound_ms"],
+         "bound_by": expand_t["bound_by"], "library_ms": None}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

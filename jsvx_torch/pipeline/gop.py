@@ -95,8 +95,9 @@ def decode_gop_wire(buf: torch.Tensor, spec: tuple, refs: tuple,
     """Decode a GOP shipped as one uint8 wire tensor.
 
     A compact wire (it holds ``coef``) has its coefficients expanded on
-    the device first; a dense wire (stacked ``frame_to_device`` dicts)
-    goes straight to the GOP loop.  The oddify-zeros quirk needs the dense
+    the device first (on a card one launch of the expansion kernel, whose
+    inputs are views of ``buf``); a dense wire (stacked
+    ``frame_to_device`` dicts) goes straight to the GOP loop.  The oddify-zeros quirk needs the dense
     wire: it changes positions the compact wire does not carry.
     """
     stacked = unflatten_wire(buf, spec)

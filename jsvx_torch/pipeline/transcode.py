@@ -8,7 +8,8 @@ GOP while the device decodes this one (each plane of each frame by the
 ``impl`` chosen, see :mod:`jsvx_torch.pipeline.gop`).  Two wires:
 
 * compact (the default): the coded coefficients only, expanded on the
-  device (``_transcode_compact``).  A GOP whose stream emits blocks out
+  device, on a card by one launch of the expansion kernel per GOP
+  (``_transcode_compact``).  A GOP whose stream emits blocks out
   of order (overlapping slices) cannot be expressed in it and falls back
   to the dense wire, GOP by GOP;
 * dense: stacked coefficient planes (``_transcode_packed``), the route of
@@ -170,10 +171,12 @@ def transcode(data: bytes, sink=None, *, device="cuda",
     only this process's round-robin share is decoded.
 
     ``probe_expand=True`` times, after the loop, the unflatten and
-    expansion of the last compact GOP's device wire on its own (each run
-    ending in a synchronise; the best of 3 after a first run) as the gauge
+    expansion of the last compact GOP's device wire on its own (on a card
+    one launch of the expansion kernel, ``csrc/expand.cu``; each run ending
+    in a synchronise; the best of 3 after a first run) as the gauge
     ``expand_probe_s_per_gop``: inside the loop the expansion and the
-    decode run back to back on the device.
+    decode run back to back on the device.  The probe's launches add to
+    the expansion kernel's count.
     """
     frame_decoder(impl)                  # reject an unknown impl early
     device = torch.device(device)
@@ -331,9 +334,11 @@ def _transcode_compact(data: bytes, sink, *, probe_expand: bool = False,
 
 
 def _probe_expand(run: _Run, up: Upload) -> None:
-    """Unflatten + expansion of ``up``'s device wire alone: a first run
+    """Unflatten + expansion of ``up``'s device wire alone (the expansion
+    kernel's launch on a card, its plain version on the CPU): a first run
     (stage ``expand_probe_compile``), then the best of 3, each ending in a
-    synchronise, as the gauge ``expand_probe_s_per_gop``."""
+    synchronise, as the gauge ``expand_probe_s_per_gop``: the host's
+    unflatten and launch plus the kernel's device time."""
     seq = run.seq
 
     def expand() -> None:

@@ -132,15 +132,30 @@ def test_cli_warm(stream_file, capsys):
 
 def test_cli_warm_shape_synthesises_jsvx_stream(tmp_path, capsys,
                                                 monkeypatch):
-    """``warm --shape`` encodes jsvx's warm stream, byte for byte."""
+    """``warm --shape`` encodes jsvx's warm stream, byte for byte.  jsvx's
+    ``warm`` points JAX's persistent compile cache at its directory; the
+    cache and its settings are put back after it, so a later test in the
+    same process (jsvx's ``test_cli_warm_populates_cache``) can point it
+    elsewhere."""
     import tempfile
+
+    import jax
+    from jax._src import compilation_cache
 
     assert cli_main(["warm", "--shape", "64x48", "--gop", "2"] + CPU) == 0
     rep = _json(capsys)
     assert rep["frames"] == 4 and rep["device"] == "cpu"
     monkeypatch.setattr(tempfile, "gettempdir", lambda: str(tmp_path))
     monkeypatch.setenv("JSVX_JIT_CACHE", str(tmp_path / "jit"))
-    assert jsvx_main(["warm", "--shape", "64x48", "--gop", "2"]) == 0
+    settings = {k: getattr(jax.config, k) for k in (
+        "jax_compilation_cache_dir",
+        "jax_persistent_cache_min_compile_time_secs")}
+    try:
+        assert jsvx_main(["warm", "--shape", "64x48", "--gop", "2"]) == 0
+    finally:
+        for k, v in settings.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
     ref = _json(capsys)
     with open(rep["stream"], "rb") as f, open(ref["stream"], "rb") as g:
         assert f.read() == g.read()
