@@ -46,7 +46,9 @@ each printing its own lines:
    the YUVA stream's alpha through the Player, the 256-vector stream
    through the Decoder, and ``python -m jsvx_torch play`` in a subprocess;
 5. timings (CUDA events, median of 30 after warm-up; host clock for the
-   end-to-end runs), each with the card's name and power limit: each
+   end-to-end runs), each with the card's name and power limit (the
+   resident GOP timed on the eager loop, ``transcode`` on the GOP
+   programs but for its A/B with the plain expansion): each
    kernel per 1080p picture, warm in L2 and with L2 flushed between
    calls, in turns with its first design, beside the bytes it must move
    and its bound; the expansion kernel per 1080p GOP, warm and cold, in
@@ -83,11 +85,30 @@ each printing its own lines:
    dispatch outside the deliberate waits, the stage split per GOP; its
    frames/s with a sink that keeps the planes and one that copies them;
    ``probe_expand``'s gauge beside phase 5's expansion time; ``python -m
-   jsvx_torch bench --trace`` (both routes), whose traces name the four
-   kernels; ``warm --shape 1920x1088``; ``tools/bench_mc.py`` (the MC
-   kernel against its plain version at up to 300 distinct vectors); the
-   fixture truncated and bit-flipped through the Decoder and
-   ``transcode``, the card's outcome and frames equal to the CPU's.
+   jsvx_torch bench --trace`` (both routes) on the 8-GOP stream, whose
+   GOPs are mostly replays of a GOP program: its traces hold one event of
+   each kernel per launch; ``warm`` on the fixture and ``warm --shape
+   1920x1088`` (jsvx's synthesised warm stream): each captures programs,
+   its second run none; ``tools/bench_mc.py`` (the MC kernel
+   against its plain version at up to 300 distinct vectors); the fixture
+   truncated and bit-flipped through the Decoder and ``transcode``, the
+   card's outcome and frames equal to the CPU's;
+8. the GOP programs (``jsvx_torch.pipeline.program``: a CUDA graph per
+   wire layout, replayed once per GOP): on every stream above (the
+   fixture, the dirty, YUVA, CIF, 320x320 and 8-GOP streams, the quirk,
+   the truncated and bit-flipped copies, and a stream whose GOP lengths
+   vary, cut from the fixture's GOPs) and both routes, ``transcode``
+   on a cold cache, again and on the eager loop (the same uploads, no
+   graph): the same outcome, 0 differing pixels, captures = distinct
+   keys, replays = GOPs minus first sights and then every GOP, the launch
+   counters equal; the 8-GOP stream on a cold cache watched as in phase 7
+   (no sync warning after GOP 0, captures included); two threads at
+   once; the bytes the cache holds; ``device_dispatch`` per GOP and the
+   resident GOP with the host in the loop, graph against eager in turns
+   (min, quartiles, max), each with its device time; ``device_dispatch``
+   per GOP where first sights dominate (the varied stream, the fixture,
+   the damaged copies): on a cold cache, on the cache it left, and
+   eager, in turns.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
@@ -115,19 +136,20 @@ import torch.distributed as dist
 from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.bitstream.bitio import BitReader
 from jsvx_torch.bitstream.container import parse_container_header
-from jsvx_torch.coding.tables import START_SEQUENCE
-from jsvx_torch.kernels import build, expand, fused, mc, recon
+from jsvx_torch.coding.tables import START_PICTURE, START_SEQUENCE
+from jsvx_torch.kernels import build, counters, expand, fused, mc, recon
 from jsvx_torch.kernels.color import ycbcr_to_rgb
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
                                        decode_frame_planes, frame_comp_keys,
                                        make_constants, predict_plane)
 from jsvx_torch.kernels.expand import expand_compact_gop
 from jsvx_torch.pipeline import gop as gop_module
-from jsvx_torch.pipeline import packed_parse
+from jsvx_torch.pipeline import packed_parse, program
 from jsvx_torch.pipeline.gop import (FRAME_DECODERS, decode_gop,
                                      decode_gop_wire, frame_at, zero_refs)
 from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
                                               parse_gop_packed, walk_stream)
+from jsvx_torch.pipeline.program import program_key
 from jsvx_torch.pipeline.stream import StreamDecoder
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx_torch.pipeline.wire import flatten_wire, unflatten_wire, wire_spec
@@ -167,8 +189,13 @@ NO_LIBRARY = ("no PyTorch call computes it: F.grid_sample does not round "
               "its own order, possibly in TF32")
 
 
+#: the script's start, for the seconds each line carries
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -576,17 +603,13 @@ def stream_frames(data: bytes, device, impl: str) -> list:
 
 
 def counted(run):
-    """``run()`` with every kernel's launch count, the count of torch
-    sideband expansions and that of plain (torch) coefficient expansions
-    set to 0 just before it; returns (its result, the counts just
-    after)."""
-    fused.launches = mc.launches = recon.launches = recon.expansions = 0
-    expand.launches = expand.plain_calls = 0
+    """``run()`` with every count of the kernels' counter registry (each
+    kernel's launches, the torch sideband expansions and the plain (torch)
+    coefficient expansions) set to 0 just before it; returns (its result,
+    the counts just after)."""
+    counters.reset()
     out = run()
-    return out, {"fused": fused.launches, "mc": mc.launches,
-                 "recon": recon.launches, "expansions": recon.expansions,
-                 "expand": expand.launches,
-                 "expand_plain": expand.plain_calls}
+    return out, counters.snapshot()
 
 
 def want_counts(fused: int = 0, mc: int = 0, recon: int = 0,
@@ -1180,6 +1203,31 @@ def plain_expansion_route():
         gop_module.expand_compact_gop = real
 
 
+def eager_program_run(prog, copied, metrics) -> tuple:
+    """What ``GopProgram.run`` does without its graph: the body (the eager
+    GOP loop on the static wire) on every GOP, no capture, no replay."""
+    if copied is not None:
+        torch.cuda.current_stream(prog.device).wait_event(copied)
+    outs = prog.body()
+    prog.consumed = program._record(prog.device)
+    prog.loaded = False
+    return outs, prog.consumed
+
+
+@contextlib.contextmanager
+def eager_route():
+    """Inside the block every GOP program runs the eager loop
+    (:func:`eager_program_run`): ``transcode`` uploads into the programs'
+    static wires as on the graph route and dispatches as it did before
+    the programs; restored after it, whatever happens."""
+    real = program.GopProgram.run
+    program.GopProgram.run = eager_program_run
+    try:
+        yield
+    finally:
+        program.GopProgram.run = real
+
+
 def transcode_vs_plain_expansion(data: bytes, dev, card: str) -> dict:
     """``transcode`` of ``data`` (the ``.cpu()`` sink) with the expansion
     kernel and with the plain expansion, in turns in this call: plain,
@@ -1192,7 +1240,7 @@ def transcode_vs_plain_expansion(data: bytes, dev, card: str) -> dict:
     for route in ("plain", "kernel", "kernel", "plain"):
         ctx = (plain_expansion_route() if route == "plain"
                else contextlib.nullcontext())
-        with ctx:
+        with eager_route(), ctx:
             for rep in range(N_E2E + 1):
                 m = Metrics()
                 sync(dev)
@@ -1216,7 +1264,8 @@ def transcode_vs_plain_expansion(data: bytes, dev, card: str) -> dict:
          gops=n_gops, **out, kernel_wins=wins, pairs=len(runs["kernel"]),
          reps=2 * N_E2E, what="transcode with the expansion kernel against "
          "the same loop with the plain (torch) expansion, in turns: plain, "
-         "kernel, kernel, plain; .cpu() sink")
+         "kernel, kernel, plain; .cpu() sink; both on the eager loop "
+         "(eager_route), as before the GOP programs")
     return out
 
 
@@ -1872,7 +1921,9 @@ def shard_phase(data: bytes, fix: str, dev, card: str) -> dict:
 
 #: GOPs of the long stream (the fixture's two, repeated)
 LONG_GOPS = 8
-#: the shape of ``python -m jsvx_torch warm --shape``
+#: the shape of ``python -m jsvx_torch warm --shape`` (jsvx's synthesised
+#: warm stream, its own GOP length and buckets) and of ``tools/bench_mc.py``'s
+#: luma plane
 WARM_SHAPE = "1920x1088"
 #: bit-flipped copies of the fixture (4 flips each, as test_corrupt_streams)
 N_FLIPPED = 6
@@ -2062,7 +2113,8 @@ def transcode_rate(data: bytes, dev, keep: bool, card: str,
 
 def trace_symbols(path: str, dev, impl: str) -> dict:
     """``python -m jsvx_torch bench PATH --trace DIR --impl IMPL`` in a
-    subprocess: its report and the kernel symbols its trace names."""
+    subprocess: its report and, per kernel symbol, the kernel events of
+    its trace that name it."""
     trace_dir = os.path.join(TRACE_DIR, impl)
     proc = subprocess.run(
         [sys.executable, "-m", "jsvx_torch", "bench", path, "--trace",
@@ -2074,9 +2126,11 @@ def trace_symbols(path: str, dev, impl: str) -> dict:
     out = proc.stdout
     report = json.loads(out[out.index("{"):])
     with open(os.path.join(trace_dir, TRACE_FILE)) as f:
-        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+        events = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in events
+             if e.get("cat") == "kernel"]
     found = {s: sum(s in nm for nm in names) for s in KERNEL_SYMBOLS}
-    return dict(report=report, found=found, events=len(names))
+    return dict(report=report, found=found, events=len(events))
 
 
 def damaged_inputs(data: bytes) -> list:
@@ -2116,12 +2170,14 @@ def decoder_outcome(data: bytes, total: int, device) -> tuple:
     return frames, stalls, None
 
 
-def transcode_outcome(data: bytes, device, impl: str) -> tuple:
+def transcode_outcome(data: bytes, device, impl: str, quirk: bool = False,
+                      metrics: Metrics | None = None) -> tuple:
     """``transcode`` of ``data``: (GOPs delivered, frames, error)."""
     got = {}
     try:
         transcode(data, lambda gi, outs: got.__setitem__(
-            gi, [o.cpu() for o in outs]), device=device, impl=impl)
+            gi, [o.cpu() for o in outs]), device=device, impl=impl,
+            quirk_oddify_zeros=quirk, metrics=metrics)
         err = None
     except ValueError as e:
         err = type(e).__name__
@@ -2207,27 +2263,50 @@ def pipeline_phase(data: bytes, fix: str, dev, card: str, cpu_frames: list,
               "best of 3; events: device time per expansion, median of "
               f"{N_TIMED} (phase 5)")
 
-    traces = {impl: trace_symbols(fix, dev, impl)
+    # the 8-GOP stream, whose keys repeat: most of its GOPs are replays of
+    # a GOP program, and the trace must still name every kernel they run
+    long_path = os.path.join(TRACE_DIR, f"long_{LONG_GOPS}.jsv")
+    os.makedirs(TRACE_DIR, exist_ok=True)
+    with open(long_path, "wb") as f:
+        f.write(longer)
+    traces = {impl: trace_symbols(long_path, dev, impl)
               for impl in ("fused", "two_kernel")}
     found = {s: sum(t["found"][s] for t in traces.values())
              for s in KERNEL_SYMBOLS}
-    emit("bench_trace", card=card, symbols_found=found,
+    n_f = len(long_cpu)
+    want = dict(zip(KERNEL_SYMBOLS, (n_f, n_f, n_f, 2 * LONG_GOPS)))
+    counters = {i: t["report"]["counters"] for i, t in traces.items()}
+    emit("bench_trace", card=card, stream=f"1080p-{LONG_GOPS}-gops",
+         kernel_events=found, expected_kernel_events=want,
+         counters=counters,
          fps_end_to_end={i: t["report"]["fps_end_to_end"]
                          for i, t in traces.items()},
          trace_events={i: t["events"] for i, t in traces.items()})
     if dev.type == "cuda":
-        check(all(found.values()), f"the traces name {found}")
+        check(found == want and all(
+            c.get("gop_program.replays", 0) > 0 for c in counters.values()),
+            f"the traces name {found} kernel events, expected {want}; "
+            f"{counters}")
 
-    proc = subprocess.run(
-        [sys.executable, "-m", "jsvx_torch", "warm", "--shape", WARM_SHAPE,
-         "--device", str(dev)], capture_output=True, text=True, timeout=600,
-        cwd=os.path.dirname(os.path.abspath(__file__)))
-    check(proc.returncode == 0, f"warm exited {proc.returncode}: "
-                                f"{proc.stderr[-2000:]}")
-    warm = json.loads(proc.stdout.strip().splitlines()[-1])
-    emit("warm", card=card, **warm)
-    check(warm["frames"] > 0 and (warm["kernels"] is not None)
-          == (dev.type == "cuda"), f"warm: {warm}")
+    # warm on the fixture, and on jsvx's synthesised warm stream (host
+    # encoded here, its own GOP length and buckets, so its own programs)
+    for label, args in (("fixture", [fix]), ("shape", ["--shape",
+                                                       WARM_SHAPE])):
+        proc = subprocess.run(
+            [sys.executable, "-m", "jsvx_torch", "warm", *args, "--device",
+             str(dev)], capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(proc.returncode == 0, f"warm {label} exited "
+                                    f"{proc.returncode}: "
+                                    f"{proc.stderr[-2000:]}")
+        warm = json.loads(proc.stdout.strip().splitlines()[-1])
+        emit("warm", card=card, warmed=label, **warm)
+        check(warm["frames"] > 0 and (warm["kernels"] is not None)
+              == (dev.type == "cuda"), f"warm {label}: {warm}")
+        if dev.type == "cuda":
+            check(warm["programs"] > 0 and warm["second_run_captures"] == 0,
+                  f"warm {label} captured {warm['programs']} programs, "
+                  f"then {warm['second_run_captures']}")
 
     w, h = (int(x) for x in WARM_SHAPE.split("x"))
     mc_rows = bench_mc.rows(dev, h, w)
@@ -2243,6 +2322,377 @@ def pipeline_phase(data: bytes, fix: str, dev, card: str, cpu_frames: list,
     emit("damaged_inputs", card=card, **damaged)
     return dict(rates=rates, probe_s=gauge, mc_rows=mc_rows,
                 damaged=damaged)
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the GOP programs
+
+#: runs of each route in the dispatch and resident-GOP turns
+N_TURNS = 20
+
+
+@contextlib.contextmanager
+def requested_keys(keys: list):
+    """Record the key of every GOP program a call asks for."""
+    real = program.ProgramSet.get
+
+    def get(self, key, build):
+        keys.append(key)
+        return real(self, key, build)
+
+    program.ProgramSet.get = get
+    try:
+        yield
+    finally:
+        program.ProgramSet.get = real
+
+
+def quartiles(xs: list) -> dict:
+    q = statistics.quantiles(xs, n=4, method="inclusive")
+    return dict(min=min(xs), q1=q[0], median=q[1], q3=q[2], max=max(xs))
+
+
+def graph_vs_eager(label: str, data: bytes, dev, impl: str,
+                   quirk: bool = False, want: list | None = None) -> dict:
+    """``transcode`` of ``data`` on a cold program cache (first sights
+    captured), again (every GOP a replay, but for the programs the cache's
+    bound closed after the first call) and on the eager loop: the same
+    outcome and 0 differing pixels (and 0 against ``want`` if given);
+    captures = the distinct keys asked for, replays = GOPs dispatched
+    minus first sights, then all of them less the recaptures; the launch
+    counters of all three runs equal."""
+    program.CACHE.clear()
+    keys: list = []
+    runs = {}
+    for name in ("first", "again", "eager"):
+        m = Metrics()
+        ctx = eager_route() if name == "eager" else requested_keys(keys)
+        with ctx:
+            out, n = counted(lambda: transcode_outcome(data, dev, impl,
+                                                       quirk, m))
+        runs[name] = dict(out=out, counts=n, metrics=m,
+                          gops=m.timers.counts["device_dispatch"])
+    first, again, eager = (runs[k] for k in ("first", "again", "eager"))
+    n_keys = len(set(keys))
+    diff = sum(mismatching_pixels(r["out"][1], eager["out"][1])
+               if r["out"][1] else 0 for r in (first, again))
+    if want is not None:
+        diff += mismatching_pixels(eager["out"][1], want)
+    # a call holds every program it asked for until it ends; then the
+    # cache keeps its bound, and the next call captures what it closed
+    recaptures = max(0, n_keys - program.CACHE.capacity)
+    c1, c2 = first["metrics"].counters, again["metrics"].counters
+    row = dict(stream=label, impl=impl, quirk=quirk,
+               gops=again["gops"], frames=len(again["out"][1]),
+               error=again["out"][2], distinct_keys=n_keys,
+               first_call=dict(captures=c1["gop_program.captures"],
+                               replays=c1["gop_program.replays"]),
+               second_call=dict(captures=c2["gop_program.captures"],
+                                replays=c2["gop_program.replays"]),
+               capture_s=first["metrics"].gauges.get(
+                   "gop_program.capture_s"),
+               launches=again["counts"],
+               vs_eager_mismatching_pixels=diff)
+    emit("gop_program_vs_eager", **row)
+    check(first["out"][0] == again["out"][0] == eager["out"][0]
+          and first["out"][2] == again["out"][2] == eager["out"][2]
+          and diff == 0, f"{label} {impl}: graph and eager routes differ "
+                         f"({diff} pixels, {first['out'][0]} "
+                         f"{again['out'][0]} {eager['out'][0]} GOPs)")
+    check(c1["gop_program.captures"] == n_keys
+          and c1["gop_program.replays"] == first["gops"] - n_keys
+          and c2["gop_program.captures"] == recaptures
+          and c2["gop_program.replays"] == again["gops"] - recaptures,
+          f"{label} {impl}: captures and replays {row}")
+    check(first["counts"] == again["counts"] == eager["counts"],
+          f"{label} {impl}: launch counts {first['counts']} "
+          f"{again['counts']} {eager['counts']}")
+    return row
+
+
+#: the GOPs of the varied stream: (GOP of the fixture, pictures kept)
+VARIED_GOPS = ((0, 4), (1, 1), (0, 2), (1, 3), (0, 1), (1, 4), (0, 3),
+               (1, 2), (0, 4), (1, 4), (0, 2), (1, 1))
+#: runs of each route per stream in the first-sight turns
+N_FIRST_SIGHT = 6
+
+
+def varied_stream(data: bytes, cuts) -> tuple:
+    """A stream whose GOP lengths vary: GOP i is GOP ``g`` of ``data``
+    with its first ``k`` pictures only, for (g, k) in ``cuts``; a P
+    picture predicts from earlier pictures only, so it decodes as those
+    pictures of GOP g.  Returns (the stream, the (first, last) frame of
+    ``data``'s frames that each of its GOPs decodes as)."""
+    meta = parse_container_header(BitReader(data))
+    head, body = data[:meta.header_bytes], data[meta.header_bytes:]
+    seq_code = b"\x00\x00\x01" + bytes([START_SEQUENCE])
+    pic_code = b"\x00\x00\x01" + bytes([START_PICTURE])
+    gops = [seq_code + g for g in body.split(seq_code)[1:]]
+    sizes = [g.count(pic_code) for g in gops]
+    out, spans = [head], []
+    for g, k in cuts:
+        pos = -1
+        for _ in range(k + 1):       # the (k+1)-th picture's start code
+            pos = gops[g].find(pic_code, pos + 1)
+            if pos < 0:
+                break
+        out.append(gops[g] if pos < 0 else gops[g][:pos])
+        first = sum(sizes[:g])
+        spans.append((first, first + k))
+    varied = b"".join(out)
+    got = [len(grp) for grp in walk_stream(varied)[2]]
+    check(got == [k for _, k in cuts], f"varied stream: GOP lengths {got}")
+    return varied, spans
+
+
+def first_sight_turns(streams: dict, dev, card: str) -> dict:
+    """``device_dispatch`` per GOP when first sights dominate: each stream
+    in ``streams`` through ``transcode`` (the fused route, the planes
+    copied to the host) on a cold program cache (``CACHE.clear()`` just
+    before: every key captured on its first GOP), right after that on the
+    cache it left (``warm``), and on the eager loop, N_FIRST_SIGHT runs
+    each in turns after a warm-up run of each; min, quartiles and max of
+    the dispatch per GOP, the captures per run and the capture seconds."""
+    out = {}
+    for label, data in streams.items():
+        routes = ("cold", "warm", "eager")
+        ms: dict = {r: [] for r in routes}
+        caps: dict = {r: [] for r in routes}
+        cap_s = []
+        gops = None
+        for rnd in range(N_FIRST_SIGHT + 1):
+            order = routes if rnd % 2 == 0 else ("eager", "cold", "warm")
+            for route in order:
+                if route == "cold":
+                    program.CACHE.clear()
+                m = Metrics()
+                ctx = (eager_route() if route == "eager"
+                       else contextlib.nullcontext())
+                with ctx:
+                    transcode_outcome(data, dev, "fused", metrics=m)
+                n = m.timers.counts.get("device_dispatch", 0)
+                if rnd == 0 or n == 0:         # rep 0 is the warm-up
+                    continue
+                gops = n
+                ms[route].append(1e3 * m.timers.totals["device_dispatch"]
+                                 / n)
+                caps[route].append(m.counters.get("gop_program.captures", 0))
+                if route == "cold":
+                    cap_s.append(m.gauges.get("gop_program.capture_s", 0.0))
+        if gops is None:
+            continue
+        out[label] = dict(
+            gops=gops,
+            device_dispatch_ms_per_gop={r: quartiles(v) if len(v) > 1
+                                        else v for r, v in ms.items()},
+            captures_per_run={r: sorted(set(v)) for r, v in caps.items()},
+            cold_capture_s=quartiles(cap_s) if len(cap_s) > 1 else cap_s,
+            cold_over_eager_median=statistics.median(ms["cold"])
+            / statistics.median(ms["eager"]))
+    emit("gop_program_first_sight", card=card, streams=out,
+         runs=N_FIRST_SIGHT,
+         what="transcode (fused, .cpu() sink): device_dispatch per GOP "
+              "dispatched; cold: CACHE.clear() just before, so every key "
+              "is captured on its first GOP (capture seconds inside the "
+              "dispatch); warm: the next run, on what the cold run left "
+              "in the cache; eager: the eager loop on every GOP; in turns")
+    return out
+
+
+def dispatch_turns(data: bytes, dev, card: str) -> dict:
+    """``transcode`` of ``data`` (the planes kept on the card) on the
+    programs and on the eager loop in turns, N_TURNS runs each after a
+    warm-up, the first route alternating: ``device_dispatch`` per GOP and
+    frames/s, min, quartiles and max."""
+    def sink(gi, outs):
+        return outs
+
+    transcode(data, sink, device=dev)                # captures
+    runs: dict = {"graph": [], "eager": []}
+    fps: dict = {"graph": [], "eager": []}
+    for rnd in range(N_TURNS):
+        for route in (("graph", "eager") if rnd % 2 == 0
+                      else ("eager", "graph")):
+            ctx = (eager_route() if route == "eager"
+                   else contextlib.nullcontext())
+            m = Metrics()
+            with ctx:
+                sync(dev)
+                t0 = time.perf_counter()
+                r = transcode(data, sink, device=dev, metrics=m)
+                sync(dev)
+            fps[route].append(r.n_frames / (time.perf_counter() - t0))
+            runs[route].append(
+                1e3 * m.timers.totals["device_dispatch"] / r.n_gops)
+    wins = sum(g < e for g, e in zip(runs["graph"], runs["eager"]))
+    out = dict(card=card, gops=r.n_gops, frames=r.n_frames,
+               device_dispatch_ms_per_gop={k: quartiles(v)
+                                           for k, v in runs.items()},
+               frames_per_s={k: quartiles(v) for k, v in fps.items()},
+               graph_dispatch_shorter=wins, pairs=N_TURNS,
+               what="transcode, planes kept on the card; graph: the GOP "
+                    "programs (every GOP a replay); eager: the same "
+                    "uploads, the eager loop per GOP; in turns")
+    emit("gop_program_dispatch", **out)
+    return out
+
+
+def resident_turns(data: bytes, dev, card: str, impl: str) -> dict:
+    """GOP 0 of ``data`` resident in a program's static wire: one replay
+    plus its output copies against the eager loop, with the host in the
+    loop (CUDA events around one call), N_TURNS calls each in turns, and
+    the device busy time of each (queued behind a spin); the two routes'
+    planes bit-equal."""
+    meta, seq, g, wire, spec, dense = gop_on_card(data, 0, dev)
+    consts = make_constants(seq, dev)
+    key = program_key(spec, seq.mb_height, seq.mb_width, meta.n_components,
+                      impl, False, consts, dev)
+    prog = program.GopProgram(key, consts)
+    prog.wire.copy_(wire)
+    m = Metrics()
+
+    def graph():
+        prog.load()
+        return prog.run(None, m)[0]
+
+    def eager():
+        prog.load()
+        return eager_program_run(prog, None, m)[0]
+
+    first = graph()                                  # eager + capture
+    got, want = graph(), eager()
+    diff = mismatching_pixels(
+        [tuple(s[i].cpu().numpy() for s in got) for i in range(len(g.hdrs))],
+        [tuple(s[i].cpu().numpy() for s in want)
+         for i in range(len(g.hdrs))])
+    diff += sum(int((a != b).sum()) for a, b in zip(first, want))
+    for fn in (graph, eager):
+        for _ in range(3):
+            fn()
+    sync(dev)
+    loop: dict = {"graph": [], "eager": []}
+    for rnd in range(N_TURNS):
+        for route in (("graph", "eager") if rnd % 2 == 0
+                      else ("eager", "graph")):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            (graph if route == "graph" else eager)()
+            e1.record()
+            e1.synchronize()
+            loop[route].append(e0.elapsed_time(e1))
+    busy = {route: statistics.median(device_ms(fn, dev, 2)[0])
+            for route, fn in (("graph", graph), ("eager", eager))}
+    out = dict(card=card, impl=impl, frames=len(g.hdrs),
+               host_in_loop_ms={k: quartiles(v) for k, v in loop.items()},
+               device_busy_ms=busy,
+               graph_over_device_ms=statistics.median(loop["graph"])
+               - busy["graph"],
+               capture_s=prog.capture_s, pool_bytes=prog.pool_bytes,
+               wire_bytes=spec[1], graph_vs_eager_mismatching_pixels=diff,
+               what="host in the loop: CUDA events around one call (graph: "
+                    "load + replay + a copy per plane stack; eager: load + "
+                    "the eager loop), in turns; device busy: calls queued "
+                    f"behind a spin, median of {N_TIMED}")
+    emit("gop_program_resident", **out)
+    check(diff == 0, f"resident GOP {impl}: graph and eager differ in "
+                     f"{diff} pixels")
+    prog.close()
+    return out
+
+
+def threaded_transcodes(data: bytes, dev, want: list) -> dict:
+    """Two threads run ``transcode`` of ``data`` at once on a cold cache,
+    each keeping its planes on the card: both get ``want``; the cache then
+    holds a second instance of a key both used at once."""
+    program.CACHE.clear()
+
+    def one(impl):
+        kept = {}
+        transcode(data, lambda gi, outs: kept.__setitem__(gi, outs),
+                  device=dev, impl=impl)
+        return [tuple(s[i].cpu().numpy() for s in kept[g])
+                for g in sorted(kept) for i in range(kept[g][0].shape[0])]
+
+    with ThreadPoolExecutor(2) as pool:
+        got = list(pool.map(one, ("fused", "fused")))
+    diffs = [mismatching_pixels(f, want) for f in got]
+    per_key: dict = {}
+    for p in program.CACHE.programs():
+        per_key[p.key] = per_key.get(p.key, 0) + 1
+    out = dict(threads=2, mismatching_pixels=diffs,
+               programs=len(program.CACHE.programs()),
+               most_instances_of_a_key=max(per_key.values()))
+    emit("gop_program_threads", **out)
+    check(diffs == [0, 0], f"two threads: {diffs} pixels differ")
+    return out
+
+
+def program_phase(data: bytes, dev, card: str, cpu_frames: list,
+                  streams: dict) -> dict:
+    """Phase 8.  ``streams`` maps a label to the bytes of a stream whose
+    keys are reported (each through both routes, graph against eager)."""
+    n_gops = len(walk_stream(data)[2])
+    longer = long_stream(data, LONG_GOPS // n_gops)
+    rows = []
+    for impl in ("fused", "two_kernel"):
+        for label, d in streams.items():
+            rows.append(graph_vs_eager(label, d, dev, impl))
+        rows.append(graph_vs_eager(f"1080p-{LONG_GOPS}-gops", longer, dev,
+                                   impl))
+        rows.append(graph_vs_eager("1080p", data, dev, impl, True))
+    # GOP lengths that vary from GOP to GOP: a key per length and bucket
+    n_per_gop = len(cpu_frames) // n_gops
+    varied, spans = varied_stream(data, VARIED_GOPS)
+    varied_cpu = [f for a, b in spans for f in cpu_frames[a:b]]
+    check(all(b - a <= n_per_gop for a, b in spans), "varied spans")
+    for impl in ("fused", "two_kernel"):
+        rows.append(graph_vs_eager("1080p-varied", varied, dev, impl,
+                                   want=varied_cpu))
+    damaged = [graph_vs_eager(label, bad, dev, impl)
+               for label, bad, _ in damaged_inputs(data)
+               for impl in ("fused", "two_kernel")]
+    emit("gop_program_keys", streams={
+        f"{r['stream']}{'-quirk' if r['quirk'] else ''}":
+            dict(gops=r["gops"], distinct_keys=r["distinct_keys"])
+        for r in rows + damaged if r["impl"] == "fused"})
+
+    # captures after GOP 0 raise no sync warning
+    long_cpu = cpu_frames * (LONG_GOPS // n_gops)
+    for impl in ("fused", "two_kernel"):
+        program.CACHE.clear()
+        w = check_pipelined(f"1080p-{LONG_GOPS}-gops-cold-cache", longer,
+                            dev, impl, False, long_cpu, card)
+        check(w["res"].metrics.counters["gop_program.captures"] > 0,
+              "the cold-cache run captured nothing")
+    threads = threaded_transcodes(longer, dev, long_cpu)
+
+    program.CACHE.clear()
+    for impl in ("fused", "two_kernel"):
+        transcode(data, device=dev, impl=impl)
+    held = [dict(impl=p.key.impl, wire_bytes=p.key.spec[1],
+                 pool_bytes=p.pool_bytes, capture_s=p.capture_s,
+                 launches=p.launches)
+            for p in program.CACHE.programs()]
+    emit("gop_program_cache", card=card, programs=held,
+         held_bytes=program.CACHE.held_bytes(),
+         capacity=program.CACHE.capacity,
+         what="the 1080p fixture on both routes, a cold cache: what each "
+              "program holds (pool: what the card's allocator reserved "
+              "during its capture)")
+
+    dispatch = dispatch_turns(data, dev, card)
+    resident = {impl: resident_turns(data, dev, card, impl)
+                for impl in ("fused", "two_kernel")}
+    first_sight = first_sight_turns(
+        {"1080p-varied": varied, "1080p": data,
+         **{label: bad for label, bad, _ in damaged_inputs(data)}},
+        dev, card)
+    return dict(rows=rows, damaged=damaged, threads=threads,
+                dispatch=dispatch, resident=resident,
+                first_sight=first_sight)
+
+
 
 
 def smoke(dev: torch.device) -> None:
@@ -2454,6 +2904,13 @@ def smoke(dev: torch.device) -> None:
     pipeline_phase(data_1080, fix, dev, card, cpu_frames,
                    statistics.median(gop_dev), statistics.median(exp_dev))
     emit("phase7", seconds=time.perf_counter() - t7)
+
+    # ---- 8. the GOP programs --------------------------------------------
+    t8 = time.perf_counter()
+    program_phase(data_1080, dev, card, cpu_frames, {
+        "1080p": data_1080, "48x64-dirty": dirty, "yuva-128x96": yuva,
+        "cif-352x288": cif, "320x320-256mv": hm})
+    emit("phase8", seconds=time.perf_counter() - t8)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jsvx", "bench")]

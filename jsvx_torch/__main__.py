@@ -192,7 +192,11 @@ def cmd_warm(args) -> int:
     """Build what a first decode would build (the CUDA kernels' library,
     on a card, and the C++ parser), then run ``transcode`` twice on the
     clip (or on jsvx's synthesised warm stream at ``--shape``): the first
-    run's and the second run's wall times."""
+    run's and the second run's wall times.  On a card the first run
+    captures the stream's GOP programs (their count and capture seconds
+    are reported) and the second replays them; a program lives only in
+    its process, so this warms the builds on disk, not the programs of
+    another process."""
     from .bitstream import native
     from .kernels import build
     from .pipeline.transcode import transcode
@@ -223,7 +227,7 @@ def cmd_warm(args) -> int:
         int(outs[0][-1, 0, 0])          # one pixel to the host
 
     t0 = time.perf_counter()
-    res = transcode(data, sink=sink, device=device)
+    first = transcode(data, sink=sink, device=device).metrics
     cold_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = transcode(data, sink=sink, device=device)
@@ -237,10 +241,17 @@ def cmd_warm(args) -> int:
         "compile_plus_first_decode_s": cold_s,
         "warm_decode_s": warm_s,
         "warm_fps": res.n_frames / warm_s,
+        "programs": first.counters["gop_program.captures"],
+        "capture_s": first.gauges.get("gop_program.capture_s", 0.0),
+        "second_run_captures": res.metrics.counters["gop_program.captures"],
         "device": device,
         "note": ("the kernels' library and the parser are built once per "
                  "source tree under cache_dir (kernels: null on the CPU, "
-                 "which runs the plain versions)"),
+                 "which runs the plain versions); the GOP programs (CUDA "
+                 "graphs, one per wire layout) were captured in this "
+                 "process and die with it, unlike jsvx's persistent "
+                 "compile cache: a server captures its own on its first "
+                 "GOP of each layout"),
     }))
     return 0
 

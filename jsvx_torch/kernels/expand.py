@@ -32,13 +32,16 @@ import ctypes
 
 import torch
 
+from . import counters
 from .decode import COMP_KEYS
 from .fused import check_aligned, check_tensor
 
 #: number of kernel launches in this process (reset it to 0 to count a run)
 launches = 0
+counters.register("expand", __name__, "launches")
 #: number of plain (torch) expansions of a component in this process
 plain_calls = 0
+counters.register("expand_plain", __name__, "plain_calls")
 
 #: blocks per CTA of the expansion kernel, a thread each
 #: (``csrc/expand.cu``: ``kTileBlocks``)

@@ -27,11 +27,13 @@ import ctypes
 
 import torch
 
+from . import counters
 from .decode import (DecodeConstants, comp_is_chroma, decode_frame_plane,
                      frame_comp_keys)
 
 #: number of kernel launches in this process (reset it to 0 to count a run)
 launches = 0
+counters.register("fused", __name__, "launches")
 
 #: the picture kernels' layout constants (``csrc/picture_layout.cuh``)
 MAX_PLANES = 4

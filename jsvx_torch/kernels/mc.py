@@ -22,11 +22,13 @@ import ctypes
 
 import torch
 
+from . import counters
 from .decode import comp_is_chroma, frame_comp_keys, predict_plane
 from .fused import check_aligned, check_plane_shape, check_tensor, launch_dims
 
 #: number of kernel launches in this process (reset it to 0 to count a run)
 launches = 0
+counters.register("mc", __name__, "launches")
 
 
 def check_mc_plane(ref: torch.Tensor, mv_blk: torch.Tensor,

@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from . import counters
 from .decode import (DecodeConstants, comp_is_chroma, dequant_values,
                      frame_comp_keys, idct_plane)
 from .fused import (check_aligned, check_is_p, check_plane_shape,
@@ -44,8 +45,10 @@ from .mc import predict_picture_mc
 
 #: number of kernel launches in this process (reset it to 0 to count a run)
 launches = 0
+counters.register("recon", __name__, "launches")
 #: number of :func:`expand_sideband` calls (reset it to 0 to count a run)
 expansions = 0
+counters.register("expansions", __name__, "expansions")
 
 
 def expand_sideband(comp_inputs: dict, consts: DecodeConstants) -> tuple:

@@ -12,7 +12,9 @@ predict from it.  ``impl`` picks the per-frame decode:
   jsvx's ``impl="pallas"``, renamed because no Pallas runs here.
 
 Both sum the IDCT in one order and dequantise by one rule, so they agree
-bit for bit.  On the CPU both run their plain versions.
+bit for bit.  On the CPU both run their plain versions.  On a card
+``transcode`` runs :func:`decode_gop_wire` as the body of a GOP program
+(:mod:`jsvx_torch.pipeline.program`), captured once per wire layout.
 """
 
 from __future__ import annotations

@@ -16,15 +16,26 @@ GOP while the device decodes this one (each plane of each frame by the
   the oddify-zeros quirk, which changes positions the compact wire does
   not carry.
 
-On a card the pooled host buffers are pinned, and each wire is copied on
-a copy stream that belongs to the call, with an event recorded after it;
-the decode's launches go to the current stream, which waits for that
-event, and a "decoded" event is recorded after each GOP's launches.  The
-device wire is allocated on the copy stream and read on the current one,
-so it is marked as used there (``record_stream``): without that the
-caching allocator could hand its block to the next GOP's copy while this
-GOP's kernels still read it.  On the CPU the same order runs, each wire a
-clone of its pooled buffer, and nothing overlaps.
+Each GOP is decoded by the GOP program of its wire layout
+(:mod:`jsvx_torch.pipeline.program`, the port's counterpart of jsvx's
+compiled ``decode_gop_scan_wire``), which the call checks out for its
+duration; each wire is copied from its pooled host buffer straight into
+the program's static wire.  On a card the pooled buffers are pinned, and
+the copy runs on a copy stream that belongs to the call, with an event
+recorded after it.  That copy first waits, on the device, for the
+program's "consumed" event, recorded after the previous GOP that used the
+same static wire (its replay and the copies of its outputs).  The
+dispatch makes the current stream wait for the copy's event, then runs
+the program: on the key's first sight the eager loop
+(:func:`jsvx_torch.pipeline.gop.decode_gop_wire`) and its capture, after
+that one graph replay and one copy per plane stack into new tensors; the
+"consumed" event is also the GOP's "decoded" event.  On the CPU the same
+order runs, every GOP through the eager loop, and nothing overlaps.
+
+The programs stay in the process's cache (``program.CACHE``) after the
+call, for the next call of the same layouts: on a card up to 8 of them,
+about 55-76 MB each at 1080p.  ``program.CACHE.clear()`` gives that
+memory back.
 
 Stages in ``Metrics``:
 
@@ -33,7 +44,8 @@ Stages in ``Metrics``:
 * ``wire_wait`` (compact GOPs): the host waits for the copy's event, the
   un-overlapped tail of the upload; the GOP's pooled buffers then go
   back to the pool, in time for the next parse;
-* ``device_dispatch``: the GOP's launches are enqueued;
+* ``device_dispatch``: the GOP's launches are enqueued (a replay; on a
+  key's first sight the eager run and the capture);
 * ``device_wait``: the host waits for the GOP's "decoded" event (on the
   compact route one GOP behind: after the next GOP is dispatched and the
   one after it parsed);
@@ -42,7 +54,10 @@ Stages in ``Metrics``:
 
 Gauges: ``width``, ``height``, ``wire_bytes`` (every wire copied, dense
 fallbacks included) and, with ``probe_expand``,
-``expand_probe_s_per_gop``.
+``expand_probe_s_per_gop``; on a card, the counters
+``gop_program.captures`` and ``gop_program.replays`` and, once a call
+captured, the gauge ``gop_program.capture_s`` (the captures' seconds,
+inside ``device_dispatch``).
 """
 
 from __future__ import annotations
@@ -57,9 +72,10 @@ from ..kernels.decode import make_constants
 from ..kernels.expand import expand_compact_gop
 from ..runtime.multihost import GopManifest
 from ..runtime.profiler import Metrics
-from .gop import decode_gop_wire, frame_decoder, zero_refs
+from .gop import frame_decoder
 from .packed_parse import (BufferPool, parse_gop_compact, parse_gop_packed,
                            walk_stream)
+from .program import CACHE, GopProgram, ProgramSet, program_key
 from .wire import flatten_wire, unflatten_wire, wire_spec
 
 
@@ -102,46 +118,40 @@ class Upload:
     n_frames: int
     compact: bool
     spec: tuple
-    wire: torch.Tensor           # on the device
+    wire: torch.Tensor           # its program's static wire
     pooled: list                 # host buffers held until the copy is done
-    copied: object = None        # the copy's CUDA event (None on the CPU)
+    copied: object               # the copy's CUDA event (None on the CPU)
+    program: GopProgram          # its decode
 
 
 class WireCopier:
     """The copies of one call's wires to ``device``.
 
-    On a card: from the pool's pinned buffer, ``non_blocking``, on a copy
-    stream of its own, each followed by an event; the current stream
-    (the decode's) waits for that event before the GOP's launches, and
-    the device wire is marked as used by it.  On the CPU: a clone.
+    Each into a GOP program's static wire ``out``.  On a card: from the
+    pool's pinned buffer, ``non_blocking``, on a copy stream of its own
+    that first waits for ``after`` (the program's "consumed" event), each
+    followed by an event the decode's stream waits for.  On the CPU: a
+    copy, complete when it returns.
     """
 
     def __init__(self, device: torch.device):
         self.device = device
         self.cuda = device.type == "cuda"
         if self.cuda:
-            self.compute = torch.cuda.current_stream(device)
             self.stream = torch.cuda.Stream(device)
 
-    def copy(self, host: torch.Tensor) -> tuple:
-        """Start the copy of ``host``; returns (device wire, event)."""
+    def copy(self, host: torch.Tensor, out: torch.Tensor, after) -> tuple:
+        """Start the copy of ``host`` into ``out``; returns (``out``, the
+        copy's event)."""
         if not self.cuda:
-            return host.clone(), None
+            return out.copy_(host), None
         with torch.cuda.stream(self.stream):
-            wire = host.to(self.device, non_blocking=True)
+            if after is not None:
+                self.stream.wait_event(after)
+            out.copy_(host, non_blocking=True)
             copied = torch.cuda.Event()
             copied.record(self.stream)
-        wire.record_stream(self.compute)
-        return wire, copied
-
-    def decoded(self):
-        """An event after everything enqueued so far on the decode's
-        stream (None on the CPU)."""
-        if not self.cuda:
-            return None
-        ev = torch.cuda.Event()
-        ev.record(self.compute)
-        return ev
+        return out, copied
 
 
 def wait(event) -> None:
@@ -170,6 +180,10 @@ def transcode(data: bytes, sink=None, *, device="cuda",
     GOPs are journaled and skipped on resume; with ``process_count > 1``
     only this process's round-robin share is decoded.
 
+    The call leaves its GOP programs in the process's cache for the next
+    call (on a card about 55-76 MB each at 1080p, at most 8 programs);
+    ``jsvx_torch.pipeline.program.CACHE.clear()`` frees them.
+
     ``probe_expand=True`` times, after the loop, the unflatten and
     expansion of the last compact GOP's device wire on its own (on a card
     one launch of the expansion kernel, ``csrc/expand.cu``; each run ending
@@ -193,19 +207,25 @@ def transcode(data: bytes, sink=None, *, device="cuda",
 
 class _Run:
     """What the two routes share: the header walk, the GOPs to do, the
-    pool, the copies, the dispatch and the delivery."""
+    pool, the copies, the GOP programs, the dispatch and the delivery.
+    ``quirk`` is the route's: the dense quirk route, or the compact route
+    with its dense fallback."""
 
     def __init__(self, data: bytes, sink, *, device: torch.device,
                  impl: str, manifest: GopManifest | None, process_id: int,
                  process_count: int, n_parse_threads: int | None,
-                 metrics: Metrics):
+                 metrics: Metrics, quirk: bool):
         self.arr = np.frombuffer(bytes(data), dtype=np.uint8)
         self.sink, self.device, self.impl = sink, device, impl
-        self.manifest, self.metrics = manifest, metrics
+        self.manifest, self.metrics, self.quirk = manifest, metrics, quirk
         self.n_threads = n_parse_threads
         with metrics.timers.stage("parse"):
             self.meta, self.seq, self.groups = walk_stream(data)
         self.consts = make_constants(self.seq, device)
+        if device.type == "cuda":
+            # the basis's one copy from the card, before GOP 0: a key
+            # first seen later runs its eager loop without a sync
+            self.consts.c_basis_host
         if manifest is None:
             self.todo = list(range(len(self.groups)))
         else:
@@ -214,6 +234,7 @@ class _Run:
                          if s.index < len(self.groups)]
         self.pool = BufferPool(pin=device.type == "cuda")
         self.copier = WireCopier(device)
+        self.programs = ProgramSet(CACHE)
         self.n_frames = 0
         self.wire_total = 0
 
@@ -224,32 +245,31 @@ class _Run:
 
     def upload(self, stacked: dict, gi: int, n_frames: int, pooled: list,
                compact: bool) -> Upload:
-        """Pack ``stacked`` into one pooled wire and start its copy."""
+        """Pack ``stacked`` into one pooled wire and start its copy into
+        the static wire of its layout's GOP program."""
         spec, buf = pack(stacked, self.pool)
-        wire, copied = self.copier.copy(self.pool.host_tensor(buf))
+        seq = self.seq
+        key = program_key(spec, seq.mb_height, seq.mb_width,
+                          self.meta.n_components, self.impl, self.quirk,
+                          self.consts, self.device)
+        program = self.programs.get(key, lambda: GopProgram(key, self.consts))
+        wire, copied = self.copier.copy(self.pool.host_tensor(buf),
+                                        *program.load())
         self.wire_total += buf.nbytes
         return Upload(index=gi, n_frames=n_frames, compact=compact,
                       spec=spec, wire=wire, pooled=pooled + [buf],
-                      copied=copied)
+                      copied=copied, program=program)
 
     def release(self, up: Upload) -> None:
         for buf in up.pooled:
             self.pool.release(buf)
         up.pooled = []
 
-    def dispatch(self, up: Upload, quirk: bool) -> tuple:
+    def dispatch(self, up: Upload) -> tuple:
         """Enqueue GOP ``up``'s decode; returns (its output planes, the
-        event recorded after its launches)."""
+        event recorded after its device work; None on the CPU)."""
         with self.metrics.timers.stage("device_dispatch"):
-            if up.copied is not None:
-                self.copier.compute.wait_event(up.copied)
-            seq = self.seq
-            refs = zero_refs(seq.coded_height, seq.coded_width,
-                             self.meta.n_components, self.device)
-            outs, _ = decode_gop_wire(up.wire, up.spec, refs, self.consts,
-                                      seq.mb_height, seq.mb_width, quirk,
-                                      self.impl)
-            return outs, self.copier.decoded()
+            return up.program.run(up.copied, self.metrics)
 
     def deliver(self, up: Upload, outs: tuple) -> None:
         """Hand a complete GOP to the sink; count and journal it."""
@@ -261,6 +281,10 @@ class _Run:
         self.metrics.count("gops")
         if self.manifest is not None:
             self.manifest.mark_done(up.index, frames=up.n_frames)
+
+    def close(self) -> None:
+        """Give the call's GOP programs back to the cache."""
+        self.programs.close()
 
     def result(self) -> TranscodeResult:
         m = self.metrics
@@ -278,7 +302,15 @@ def _transcode_compact(data: bytes, sink, *, probe_expand: bool = False,
     tail and decode, and GOP g-1 is delivered after GOP g is dispatched.
     GOPs whose streams emit blocks out of order fall back to the dense
     wire per GOP (uploaded the same way, waited for by the device only)."""
-    run = _Run(data, sink, **kw)
+    run = _Run(data, sink, quirk=False, **kw)
+    try:
+        _compact_loop(run, probe_expand)
+    finally:
+        run.close()
+    return run.result()
+
+
+def _compact_loop(run: _Run, probe_expand: bool) -> None:
     metrics = run.metrics
     buckets: dict = {}                   # sticky per-component buckets
 
@@ -320,7 +352,7 @@ def _transcode_compact(data: bytes, sink, *, probe_expand: bool = False,
             with metrics.timers.stage("wire_wait"):
                 wait(up.copied)
             run.release(up)
-        outs, decoded = run.dispatch(up, quirk=False)
+        outs, decoded = run.dispatch(up)
         nxt = parse_one(todo[i + 1]) if i + 1 < len(todo) else None
         if pending is not None:
             flush(pending)
@@ -330,7 +362,6 @@ def _transcode_compact(data: bytes, sink, *, probe_expand: bool = False,
 
     if probe_expand and last is not None:
         _probe_expand(run, last)
-    return run.result()
 
 
 def _probe_expand(run: _Run, up: Upload) -> None:
@@ -360,7 +391,15 @@ def _transcode_packed(data: bytes, sink, **kw) -> TranscodeResult:
     """The dense wire for every GOP (the oddify-zeros quirk's route): while
     the device decodes GOP g the host parses GOP g+1; GOP g is then waited
     for, its buffers recycled and delivered before GOP g+1 is dispatched."""
-    run = _Run(data, sink, **kw)
+    run = _Run(data, sink, quirk=True, **kw)
+    try:
+        _packed_loop(run)
+    finally:
+        run.close()
+    return run.result()
+
+
+def _packed_loop(run: _Run) -> None:
     metrics = run.metrics
 
     def parse_one(gi: int) -> Upload:
@@ -373,11 +412,10 @@ def _transcode_packed(data: bytes, sink, **kw) -> TranscodeResult:
     nxt = parse_one(todo[0]) if todo else None
     for i, gi in enumerate(todo):
         up = nxt
-        outs, decoded = run.dispatch(up, quirk=True)
+        outs, decoded = run.dispatch(up)
         # overlap: the host parses the next GOP while the device decodes
         nxt = parse_one(todo[i + 1]) if i + 1 < len(todo) else None
         with metrics.timers.stage("device_wait"):
             wait(decoded)
         run.release(up)
         run.deliver(up, outs)
-    return run.result()

@@ -128,6 +128,9 @@ def test_cli_warm(stream_file, capsys):
     assert os.path.exists(rep["parser"]["path"])
     assert rep["compile_plus_first_decode_s"] > 0
     assert rep["warm_decode_s"] > 0 and rep["warm_fps"] > 0
+    # the CPU runs the eager loop: no GOP program is captured
+    assert rep["programs"] == rep["second_run_captures"] == 0
+    assert rep["capture_s"] == 0.0 and "process" in rep["note"]
 
 
 def test_cli_warm_shape_synthesises_jsvx_stream(tmp_path, capsys,

@@ -398,12 +398,14 @@ def test_transcode_order_is_jsvx(three_gops, monkeypatch, quirk, order):
     jsvx's ``transcode`` logged the same way."""
     import jsvx.pipeline.gop as jgop
     import jsvx.pipeline.transcode as jtr
+    import jsvx_torch.pipeline.program as tprog
     import jsvx_torch.pipeline.transcode as ttr
 
+    # the port decodes each GOP in its GOP program's body
     port = _logged_order(
         monkeypatch, lambda sink: transcode(three_gops, sink, device="cpu",
                                             quirk_oddify_zeros=quirk),
-        ttr, ("parse_gop_compact", "parse_gop_packed"), ttr,
+        ttr, ("parse_gop_compact", "parse_gop_packed"), tprog,
         "decode_gop_wire")
     # jsvx imports its parse (and its compact route's decode) inside the
     # function, its quirk route's decode at the top of the module
@@ -480,7 +482,8 @@ def test_manifest_checkpoint_resume(three_gops, tmp_path):
 
 
 def test_cpu_wire_is_a_clone_so_its_buffer_can_go_back():
-    """On the CPU the pool is not pinned and a wire is a clone: the pooled
+    """On the CPU the pool is not pinned and a wire is a copy (into its GOP
+    program's static wire), complete when ``copy`` returns: the pooled
     buffer may be reused (released in ``wire_wait``) at once."""
     from jsvx_torch.pipeline.transcode import WireCopier
 
@@ -490,8 +493,10 @@ def test_cpu_wire_is_a_clone_so_its_buffer_can_go_back():
     buf[:] = 7
     host = pool.host_tensor(buf)
     assert host.data_ptr() == buf.ctypes.data
-    wire, copied = WireCopier(torch.device("cpu")).copy(host)
+    static = torch.zeros(256, dtype=torch.uint8)
+    wire, copied = WireCopier(torch.device("cpu")).copy(host, static, None)
     buf[:] = 9
+    assert wire is static and wire.data_ptr() != host.data_ptr()
     assert copied is None and int(wire.sum()) == 7 * 256
     with pytest.raises(ValueError, match="1-D uint8"):
         pool.host_tensor(np.zeros((2, 2), np.uint8))
