@@ -108,7 +108,26 @@ each printing its own lines:
    (min, quartiles, max), each with its device time; ``device_dispatch``
    per GOP where first sights dominate (the varied stream, the fixture,
    the damaged copies): on a cold cache, on the cache it left, and
-   eager, in turns.
+   eager, in turns;
+9. the GOP programs on the other GOP paths (``decode_group``'s, with the
+   reference planes as inputs, and ``decode_gops_parallel``'s): on the
+   fixture, the fixture with the quirk, the YUVA, CIF and dirty streams,
+   through ``StreamDecoder`` (GOP scan and per picture, both routes),
+   the Decoder (GOP batch and picture by picture), the Player with RGB
+   and ``decode_gops_parallel`` on a mesh of one rank, each on a cold
+   cache, again and on the eager loop: the same outcome, 0 differing
+   pixels among them and against the CPU, captures = distinct keys,
+   replays = units minus first sights, then every unit, the launch
+   counters equal, the bytes the cache holds; what each kind of program
+   holds at 1080p; each path of the fixture on the programs against the
+   eager loop in turns (frames/s and ``device_decode`` per GOP or
+   picture, min, quartiles and max).  Phase 6's ranks also hold their
+   ``decode_gops_parallel`` share's program (a capture, then a replay)
+   to the eager loop.
+
+Since phase 9's paths run on their programs, so do phase 4's
+``StreamDecoder``, Decoder and Player checks and phase 5's timings of
+them (phase 5's first designs run on the eager loop).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises (non-zero
@@ -141,7 +160,8 @@ from jsvx_torch.kernels import build, counters, expand, fused, mc, recon
 from jsvx_torch.kernels.color import ycbcr_to_rgb
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
                                        decode_frame_planes, frame_comp_keys,
-                                       make_constants, predict_plane)
+                                       frame_to_device, make_constants,
+                                       predict_plane)
 from jsvx_torch.kernels.expand import expand_compact_gop
 from jsvx_torch.pipeline import gop as gop_module
 from jsvx_torch.pipeline import packed_parse, program
@@ -1515,7 +1535,8 @@ def two_kernel_gop_times(wire, spec, n_f: int, seq, meta, consts, dev,
 def stream_decoder_times(data: bytes, dev, card: str) -> None:
     """``StreamDecoder`` end to end (host clock, median of N_E2E after a
     warm-up) and its stages, through the two-kernel route with its first
-    designs, the two-kernel route and the fused route.  Needs
+    designs (on the eager loop, as before the GOP programs), the
+    two-kernel route and the fused route (on their programs).  Needs
     :func:`first_design_route`."""
     for impl in ("two_kernel_first_design", "two_kernel", "fused"):
         m, wall = Metrics(), []
@@ -1523,7 +1544,10 @@ def stream_decoder_times(data: bytes, dev, card: str) -> None:
             mm = Metrics() if rep == 0 else m  # rep 0 is the warm-up
             sync(dev)
             t0 = time.perf_counter()
-            r = StreamDecoder(data, device=dev).decode(impl=impl, metrics=mm)
+            with (eager_route() if impl == "two_kernel_first_design"
+                  else contextlib.nullcontext()):
+                r = StreamDecoder(data, device=dev).decode(impl=impl,
+                                                           metrics=mm)
             sync(dev)
             if rep:
                 wall.append(time.perf_counter() - t0)
@@ -1630,13 +1654,31 @@ def shard_rank(rank: int, world: int, fixture: str, device: str) -> None:
         mismatching_pixels=sum(differing(
             [gather_rows(o[j], mesh_2d) for o in o2], refs[g])
             for j, g in enumerate(g2)))
-    (op, _, gp), n = counted(lambda: decode_gops_parallel(
-        batch, seq.coded_height, seq.coded_width, consts, mesh_2d,
-        device=dev))
+    # the rank's share through its GOP program: the first sight captures,
+    # the second call replays, the eager loop gives the same planes
+    calls = {}
+    for name in ("first", "again", "eager"):
+        m = Metrics()
+        with eager_route() if name == "eager" else contextlib.nullcontext():
+            (op, _, gp), n = counted(lambda: decode_gops_parallel(
+                batch, seq.coded_height, seq.coded_width, consts, mesh_2d,
+                device=dev, metrics=m))
+        calls[name] = dict(planes=[[o[j] for o in op]
+                                   for j in range(len(gp))], launches=n,
+                           captures=m.counters.get("gop_program.captures",
+                                                   0),
+                           replays=m.counters.get("gop_program.replays", 0))
+    first = calls["first"]
     out["gop_parallel"] = dict(
-        gops=list(gp), launches=n, frames=n_f * len(gp),
-        mismatching_pixels=sum(differing([o[j] for o in op], refs[g])
-                               for j, g in enumerate(gp)))
+        gops=list(gp), launches=first["launches"], frames=n_f * len(gp),
+        mismatching_pixels=sum(differing(p, refs[g]) for p, g in zip(
+            first["planes"], gp)),
+        program={name: dict(captures=c["captures"], replays=c["replays"],
+                            launches=c["launches"])
+                 for name, c in calls.items()},
+        vs_eager_mismatching_pixels=sum(
+            differing(a, b) for name in ("first", "again")
+            for a, b in zip(calls[name]["planes"], calls["eager"]["planes"])))
 
     syn = synthetic_gop(max_mv=200, seed=60)
     sc = make_constants(None, dev)
@@ -1816,6 +1858,14 @@ def check_shard_rank(r: dict, backend: str, n_f: int) -> None:
         check(got["mismatching_pixels"] == 0,
               f"rank {r['rank']} {key}: {got['mismatching_pixels']} pixels "
               f"differ from the plain decode")
+    gp = r["gop_parallel"]
+    check(gp["program"] == {
+        "first": dict(captures=1, replays=0, launches=gp["launches"]),
+        "again": dict(captures=0, replays=1, launches=gp["launches"]),
+        "eager": dict(captures=0, replays=0, launches=gp["launches"])}
+        and gp["vs_eager_mismatching_pixels"] == 0,
+        f"rank {r['rank']} gop_parallel's program: {gp['program']}, "
+        f"{gp['vs_eager_mismatching_pixels']} pixels differ from eager")
     check(r["rows"]["frames"] == n_f, f"rank {r['rank']}: frames")
     check(r["gather_window_mismatching_pixels"] == 0,
           f"rank {r['rank']}: gather_row_halo's window differs")
@@ -2693,6 +2743,241 @@ def program_phase(data: bytes, dev, card: str, cpu_frames: list,
                 first_sight=first_sight)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the GOP programs on decode_group and decode_gops_parallel
+
+#: rounds of phase 9's turns (each route once a round, the first
+#: alternating)
+N_GROUP_TURNS = 8
+
+
+def group_frames(frames) -> list:
+    return [tuple(p.cpu().numpy() for p in f) for f in frames]
+
+
+def stream_decoder_path(data: bytes, scan: bool, impl: str,
+                        quirk: bool = False):
+    """``StreamDecoder(data).decode`` as ``run(device, metrics)``."""
+    def run(device, m):
+        res = StreamDecoder(data, quirk, device=device).decode(
+            use_gop_scan=scan, impl=impl, metrics=m)
+        return group_frames(res.frames)
+    return run
+
+
+def decoder_path(data: bytes, scan: bool, quirk: bool = False):
+    """The streaming Decoder over the whole buffered stream as
+    ``run(device, metrics)``."""
+    def run(device, m):
+        d = Decoder(PlayerConfig(use_gop_scan=scan,
+                                 quirk_oddify_zeros=quirk), device=device)
+        d.metrics = m
+        d.feed(0, data, total=len(data))
+        frames = group_frames(f.planes for f in d.iter_frames())
+        check(d.ended, "the Decoder did not reach the end")
+        return frames
+    return run
+
+
+def player_path(data: bytes, quirk: bool = False):
+    """The Player with RGB output to ``ended`` as ``run(device,
+    metrics)``: each shown frame's planes and its RGB frame; its
+    Decoder's counters go to ``metrics``."""
+    def run(device, m):
+        p = Player(PlayerConfig(emit_rgb=True, quirk_oddify_zeros=quirk),
+                   device=device)
+        _, rgb, planes = play(data, p)
+        for k, v in p.decoder.metrics.counters.items():
+            m.count(k, v)
+        return [f + (x,) for f, x in zip(planes, rgb, strict=True)]
+    return run
+
+
+def gop_batch_host(data: bytes) -> tuple:
+    """Every GOP of ``data`` densely packed and stacked on a GOP axis
+    (numpy), or None when its GOPs differ in length; and the sequence
+    header."""
+    d = StreamDecoder(data, device="cpu")
+    gops = []
+    for ft in d.parse_all():
+        if ft.is_intra_picture or not gops:
+            gops.append([])
+        gops[-1].append(ft)
+    if len({len(g) for g in gops}) != 1:
+        return None, d.parser.seq
+    stacked = [gop_module.stack_device_frames([frame_to_device(ft)
+                                               for ft in g]) for g in gops]
+    batch = {k: ({f: np.stack([g[k][f] for g in stacked]) for f in v}
+                 if isinstance(v, dict)
+                 else np.stack([g[k] for g in stacked]))
+             for k, v in stacked[0].items()}
+    return batch, d.parser.seq
+
+
+def gops_parallel_path(batch: dict, seq, quirk: bool = False):
+    """``decode_gops_parallel`` of ``batch`` on a mesh of one rank (no
+    process group) as ``run(device, metrics)``: every GOP's frames in
+    stream order (the final planes are views of the last ones)."""
+    def run(device, m):
+        outs, _, gops = decode_gops_parallel(
+            batch, seq.coded_height, seq.coded_width,
+            make_constants(seq, device), build_mesh({"gop": 1}),
+            quirk_oddify_zeros=quirk, device=device, metrics=m)
+        return group_frames([tuple(o[g][i] for o in outs)
+                             for g in range(len(gops))
+                             for i in range(int(outs[0].shape[1]))])
+    return run
+
+
+def path_outcome(run, device, m) -> tuple:
+    """``run(device, m)``: (its frames, the error's name or None)."""
+    try:
+        return run(device, m), None
+    except ValueError as e:
+        return [], type(e).__name__
+
+
+def group_vs_eager(label: str, path: str, run, dev, want: list,
+                   n_planes: int) -> dict:
+    """``run`` on a cold program cache (first sights captured), again
+    (every unit a replay) and on the eager loop (:func:`eager_route`):
+    the same outcome, 0 differing pixels among the three and against
+    ``want`` (the CPU's frames, held to the first ``n_planes`` planes of
+    each frame); captures = the distinct keys asked for, replays = units
+    minus first sights, then every unit; the launch counters of the three
+    runs equal; the bytes the cache then holds."""
+    program.CACHE.clear()
+    runs = {}
+    for name in ("first", "again", "eager"):
+        keys, m = [], Metrics()
+        ctx = eager_route() if name == "eager" else requested_keys(keys)
+        with ctx:
+            out, n = counted(lambda: path_outcome(run, dev, m))
+        runs[name] = dict(out=out, counts=n, metrics=m, keys=keys)
+    first, again, eager = (runs[k] for k in ("first", "again", "eager"))
+    n_keys = len(set(first["keys"]))
+    diff = sum(mismatching_pixels(r["out"][0], eager["out"][0])
+               for r in (first, again))
+    d_cpu = mismatching_pixels([f[:n_planes] for f in eager["out"][0]],
+                               want)
+    c1, c2 = first["metrics"].counters, again["metrics"].counters
+    row = dict(stream=label, path=path, frames=len(want),
+               units=len(first["keys"]), distinct_keys=n_keys,
+               error=again["out"][1],
+               first_call=dict(captures=c1.get("gop_program.captures", 0),
+                               replays=c1.get("gop_program.replays", 0)),
+               second_call=dict(captures=c2.get("gop_program.captures", 0),
+                                replays=c2.get("gop_program.replays", 0)),
+               launches=again["counts"], vs_eager_mismatching_pixels=diff,
+               vs_cpu_mismatching_pixels=d_cpu,
+               programs=len(program.CACHE.programs()),
+               held_bytes=program.CACHE.held_bytes())
+    emit("group_program_vs_eager", **row)
+    check(first["out"][1] is None and again["out"][1] is None
+          and eager["out"][1] is None and diff == 0 and d_cpu == 0,
+          f"{label} {path}: graph, eager and CPU differ ({diff} and "
+          f"{d_cpu} pixels, errors {first['out'][1]} {again['out'][1]} "
+          f"{eager['out'][1]})")
+    check(n_keys > 0 and row["first_call"] == dict(
+        captures=n_keys, replays=len(first["keys"]) - n_keys)
+        and row["second_call"] == dict(captures=0,
+                                       replays=len(again["keys"])),
+        f"{label} {path}: captures and replays {row}")
+    check(first["counts"] == again["counts"] == eager["counts"]
+          and sum(first["counts"].values()) > 0,
+          f"{label} {path}: launch counts {first['counts']} "
+          f"{again['counts']} {eager['counts']}")
+    return row
+
+
+def group_paths(data: bytes, quirk: bool = False) -> dict:
+    """Every ``decode_group`` path and the GOP-parallel path of ``data``
+    (where its GOPs share a length), by name."""
+    paths = {f"stream_decoder_{'scan' if scan else 'picture'}_{impl}":
+             stream_decoder_path(data, scan, impl, quirk)
+             for scan in (True, False) for impl in ("fused", "two_kernel")}
+    paths["decoder_gop_batch"] = decoder_path(data, True, quirk)
+    paths["decoder_picture"] = decoder_path(data, False, quirk)
+    paths["player_rgb"] = player_path(data, quirk)
+    batch, seq = gop_batch_host(data)
+    if batch is not None:
+        paths["gops_parallel"] = gops_parallel_path(batch, seq, quirk)
+    return paths
+
+
+def group_turns(data: bytes, dev, card: str) -> dict:
+    """Each path of the 1080p fixture on the programs and on the eager
+    loop in turns, N_GROUP_TURNS runs of each after a warm-up that
+    captures: frames/s (host clock around a run that ends in a
+    synchronise) and, where the path has the stage, ``device_decode`` per
+    unit (a GOP or a picture); min, quartiles and max."""
+    out = {}
+    for name, run in group_paths(data).items():
+        run(dev, Metrics())
+        fps: dict = {"graph": [], "eager": []}
+        dd: dict = {"graph": [], "eager": []}
+        n_f = 0
+        for rnd in range(N_GROUP_TURNS):
+            for route in (("graph", "eager") if rnd % 2 == 0
+                          else ("eager", "graph")):
+                ctx = (eager_route() if route == "eager"
+                       else contextlib.nullcontext())
+                m = Metrics()
+                with ctx:
+                    sync(dev)
+                    t0 = time.perf_counter()
+                    n_f = len(run(dev, m))
+                    sync(dev)
+                fps[route].append(n_f / (time.perf_counter() - t0))
+                n = m.timers.counts.get("device_decode", 0)
+                if n:
+                    dd[route].append(
+                        1e3 * m.timers.totals["device_decode"] / n)
+        out[name] = dict(frames=n_f, frames_per_s={k: quartiles(v)
+                                                  for k, v in fps.items()})
+        if dd["graph"]:
+            out[name]["device_decode_ms_per_unit"] = {
+                k: quartiles(v) for k, v in dd.items()}
+    emit("group_program_turns", card=card, paths=out, rounds=N_GROUP_TURNS,
+         what="1080p fixture; graph: the GOP programs (a replay per GOP "
+              "or picture); eager: the same uploads, the eager loop; in "
+              "turns; device_decode per unit (a GOP on the scan and "
+              "GOP-batch paths, a picture on the picture paths)")
+    return out
+
+
+def group_cache_bytes(data: bytes, dev, card: str) -> list:
+    """What each kind of program holds at 1080p: the fixture once through
+    each path on a cold cache."""
+    program.CACHE.clear()
+    for run in group_paths(data).values():
+        run(dev, Metrics())
+    held = [dict(impl=p.key.impl, refs_in=p.key.refs_in, gops=p.key.gops,
+                 wire_bytes=p.key.spec[1],
+                 slot_bytes=sum(s.numel() for s in p.slots or ()),
+                 pool_bytes=p.pool_bytes, held_bytes=p.held_bytes,
+                 capture_s=p.capture_s)
+            for p in program.CACHE.programs()]
+    emit("group_program_cache", card=card, programs=held,
+         held_bytes=program.CACHE.held_bytes(),
+         capacity=program.CACHE.capacity,
+         what="the 1080p fixture through every decode_group and "
+              "GOP-parallel path on a cold cache: each program's static "
+              "wire, reference slots and the pool its capture reserved")
+    return held
+
+
+def group_phase(streams: dict, dev, card: str, data_1080: bytes) -> dict:
+    """Phase 9.  ``streams`` maps a label to (the stream's bytes, the
+    quirk, its frames on the CPU, its plane count)."""
+    rows = []
+    for label, (data, quirk, want, n_planes) in streams.items():
+        for path, run in group_paths(data, quirk).items():
+            rows.append(group_vs_eager(label, path, run, dev, want,
+                                       n_planes))
+    held = group_cache_bytes(data_1080, dev, card)
+    turns = group_turns(data_1080, dev, card)
+    return dict(rows=rows, held=held, turns=turns)
 
 
 def smoke(dev: torch.device) -> None:
@@ -2911,6 +3196,18 @@ def smoke(dev: torch.device) -> None:
         "1080p": data_1080, "48x64-dirty": dirty, "yuva-128x96": yuva,
         "cif-352x288": cif, "320x320-256mv": hm})
     emit("phase8", seconds=time.perf_counter() - t8)
+
+    # ---- 9. the GOP programs on the other GOP paths -------------------------
+    t9 = time.perf_counter()
+    group_phase({
+        "1080p": (data_1080, False, cpu_frames, n_planes),
+        "1080p-quirk": (data_1080, True, stream_frames_quirk(
+            data_1080, "cpu", "fused", True), n_planes),
+        "yuva-128x96": (yuva, False, stream_frames(yuva, "cpu", "fused"), 4),
+        "cif-352x288": (cif, False, stream_frames(cif, "cpu", "fused"), 3),
+        "48x64-dirty": (dirty, False, stream_frames(dirty, "cpu", "fused"),
+                        3)}, dev, card, data_1080)
+    emit("phase9", seconds=time.perf_counter() - t9)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jsvx", "bench")]

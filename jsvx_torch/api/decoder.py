@@ -20,7 +20,11 @@ oracle on the host.  On the torch backend:
   the GOP is parsed, the GOP goes to ``device`` as one dense wire and
   through the GOP loop; the first frame returns and the rest queue.
 
-Both go through :func:`jsvx_torch.pipeline.stream.decode_group`.
+Both go through :func:`jsvx_torch.pipeline.stream.decode_group`, so
+through a GOP program (:mod:`jsvx_torch.pipeline.program`: the picture's
+or the GOP's, a CUDA graph replayed on a card), checked out of the
+process's cache for that call only: a Decoder that is dropped or seeks
+holds none.
 ``DecodedFrame.planes`` are uint8 tensors on ``device`` (numpy arrays on
 the oracle backend).
 
@@ -73,7 +77,8 @@ class Decoder(EventDispatcher):
     """The streaming Decoder, reconstructing on ``device``.
 
     ``metrics`` holds the torch backend's stages: ``parse`` (the GOP
-    batch's picture parse), ``pack``, ``h2d`` and ``device_decode``.
+    batch's picture parse), ``pack``, ``h2d`` and ``device_decode``, and
+    on a card the counters ``gop_program.captures`` and ``.replays``.
     """
 
     def __init__(self, config: PlayerConfig | None = None,

@@ -12,9 +12,10 @@ predict from it.  ``impl`` picks the per-frame decode:
   jsvx's ``impl="pallas"``, renamed because no Pallas runs here.
 
 Both sum the IDCT in one order and dequantise by one rule, so they agree
-bit for bit.  On the CPU both run their plain versions.  On a card
-``transcode`` runs :func:`decode_gop_wire` as the body of a GOP program
-(:mod:`jsvx_torch.pipeline.program`), captured once per wire layout.
+bit for bit.  On the CPU both run their plain versions.
+:func:`decode_gop_wire` and :func:`decode_gop_batch` are the bodies of
+the GOP programs (:mod:`jsvx_torch.pipeline.program`), captured once per
+wire layout on a card.
 """
 
 from __future__ import annotations
@@ -68,26 +69,50 @@ def frame_at(dense: dict, i: int) -> dict:
     return frame
 
 
+def gop_at(batch: dict, g: int) -> dict:
+    """GOP ``g`` of a batch whose leaves lead with the GOP axis."""
+    return {k: gop_at(v, g) if isinstance(v, dict) else v[g]
+            for k, v in batch.items()}
+
+
 def decode_gop(dense: dict, refs: tuple, consts: DecodeConstants,
                quirk_oddify_zeros: bool = False,
-               impl: str = "fused") -> tuple:
+               impl: str = "fused", outs: tuple | None = None) -> tuple:
     """Decode a stacked GOP; returns ((Y, Cb, Cr[, A]) stacks, final refs).
 
     ``dense`` holds per-frame stacks on a leading axis (the output of
     :func:`jsvx_torch.kernels.expand.expand_compact_gop`, or a stacked
     dense GOP).  Each frame's planes are written straight into the output
-    stacks, and the next frame predicts from those rows.
+    stacks (``outs`` if given, else new ones), and the next frame
+    predicts from those rows.
     """
     decode_frame = frame_decoder(impl)
     n_comps = len(frame_comp_keys(dense))
     n = dense["is_p"].shape[0]
-    outs = tuple(torch.empty((n,) + tuple(r.shape), dtype=torch.uint8,
-                             device=r.device) for r in refs[:n_comps])
+    if outs is None:
+        outs = tuple(torch.empty((n,) + tuple(r.shape), dtype=torch.uint8,
+                                 device=r.device) for r in refs[:n_comps])
     for i in range(n):
         refs = decode_frame(frame_at(dense, i), refs, consts,
                             quirk_oddify_zeros,
                             outs=tuple(o[i] for o in outs))
     return outs, refs
+
+
+def decode_gop_batch(batch: dict, refs: tuple, consts: DecodeConstants,
+                     quirk_oddify_zeros: bool = False,
+                     impl: str = "fused") -> tuple:
+    """Decode G GOPs stacked on a leading axis (leaves ``(G, F, ...)``),
+    each from ``refs``, one after the other; returns (G, F, H, W) stacks
+    per plane (jsvx vmaps its GOP scan over the same axis)."""
+    n_comps = len(frame_comp_keys(batch))
+    g, n = batch["is_p"].shape[:2]
+    outs = tuple(torch.empty((g, n) + tuple(r.shape), dtype=torch.uint8,
+                             device=r.device) for r in refs[:n_comps])
+    for i in range(g):
+        decode_gop(gop_at(batch, i), refs, consts, quirk_oddify_zeros, impl,
+                   outs=tuple(o[i] for o in outs))
+    return outs
 
 
 def decode_gop_wire(buf: torch.Tensor, spec: tuple, refs: tuple,

@@ -1,37 +1,52 @@
 """The GOP program: one captured CUDA graph per wire layout, replayed once
 per GOP.
 
-The port's counterpart of the program jsvx compiles per static key:
-``jsvx/pipeline/gop.py``'s ``decode_gop_scan_wire`` (and
-``decode_gop_scan`` for the dense wire) is a ``jax.jit`` with the wire
-layout, the picture size and the route static, compiled on the first
-sight of a key, cached, and dispatched with one host call per GOP.  Here
-a :class:`GopProgram` holds, for one key:
+The port's counterpart of the programs jsvx compiles per static key:
+``jsvx/pipeline/gop.py``'s ``decode_gop_scan_wire`` and
+``decode_gop_scan`` (behind ``transcode``, ``StreamDecoder`` and the
+Decoder's GOP batch), the per-picture ``decode_frame_jit`` (the
+picture-at-a-time paths) and ``jsvx/shard/gop_parallel.py``'s jitted
+``run`` are each a ``jax.jit`` with the wire layout, the picture size and
+the route static, compiled on the first sight of a key, cached, and
+dispatched with one host call per GOP.  Here a :class:`GopProgram` holds,
+for one key:
 
 * a static device wire of the layout's ``spec[1]`` bytes, allocated
   outside the graph so its address is fixed: each GOP's upload copies
   into it;
+* with ``refs_in`` (``decode_group``: the reference planes carried from
+  the GOP or picture before, which jsvx traces as ``init_refs``), static
+  reference slots beside it, which the caller copies its planes into;
+  otherwise the body starts from zero planes it makes itself;
 * a ``torch.cuda.CUDAGraph`` of :meth:`GopProgram.body`, the eager GOP
   loop: the wire's unflatten, the compact wire's expansion (one launch of
-  ``csrc/expand.cu``), the zero reference planes, and the frame loop of
+  ``csrc/expand.cu``), the reference planes, and the frame loop of
   :func:`jsvx_torch.pipeline.gop.decode_gop_wire` through the kernels'
-  wrappers, writing output stacks that live in the graph's memory pool.
+  wrappers (with ``gops``, :func:`~jsvx_torch.pipeline.gop.
+  decode_gop_batch` over the GOPs stacked on the wire), writing output
+  stacks that live in the graph's memory pool.
 
 On a card, on the first sight of a key the body runs eagerly on the real
 wire (its planes are that GOP's result, and the run loads every kernel's
 module), then it is captured; each later GOP of the key replays the graph
-and copies the static outputs into new stacks, which the caller owns.  A
-capture or a replay that fails raises: nothing runs the eager loop in
-its place.  Captures take a process lock (one capture at a time, as
+and copies the static outputs into new stacks, which the caller owns (the
+next GOP's reference planes are views of those copies, never of the
+graph's outputs, which the next replay overwrites).  A capture or a
+replay that fails raises: nothing runs the eager loop in its place.
+Captures take a process lock (one capture at a time, as
 ``torch.cuda.graphs`` requires) and run in ``thread_local`` mode, so
-another thread's CUDA calls cannot break them.  On the CPU a program
-has no graph: every GOP runs the body, which allocates its outputs.
+another thread's CUDA calls cannot break them.  On the CPU a program has
+no graph: every GOP runs the body, which allocates its outputs.
 
 The key (:func:`program_key`) is what jsvx's jit keeps static: the layout
-(``spec``, and with it the frame count), ``mb_h``, ``mb_w``, the number of
-planes, ``impl``, the oddify-zeros quirk and the device; plus the quant
-matrices, which jsvx traces as data but which the kernels here take as
-launch arguments, so a graph holds them.
+(``spec``, and with it the frame count and, stacked, the GOP count),
+``mb_h``, ``mb_w``, the number of planes, ``impl``, the oddify-zeros
+quirk, the device, whether the references come in (``refs_in``) and the
+GOPs stacked (``gops``); plus the quant matrices, which jsvx traces as
+data but which the kernels here take as launch arguments, so a graph
+holds them.  A dense picture's layout depends only on the picture size,
+the plane count and whether the parser emitted ``mult``/``flags``, so
+every picture of a stream decodes through one one-picture program.
 
 The kernels' launch counters (:mod:`jsvx_torch.kernels.counters`) are
 Python integers, which a replay does not move.  A program records, at its
@@ -43,14 +58,16 @@ times each kernel ran.
 programs.  A call checks its programs out for its duration
 (:class:`ProgramSet`), so two concurrent calls never share a static
 buffer: a call that finds its key checked out builds a second instance.
-A program holds its wire and its graph's pool (``held_bytes``): for a
-4-frame 1080p GOP on the compact wire, 6.6 MB of wire and, as the card's
-allocator reserves it during the capture, 48 MB of pool on the fused
-route (25 MB of expanded levels, 12.5 MB of output stacks, 3 MB of zero
-planes, in whole segments) and 69 MB on the two-kernel route (a
-picture's int16 prediction more); so a full cache of 1080p programs
-holds about 0.6 GB (measured on an NVIDIA H100 by ``chip_smoke.py``'s
-phase 8).  That memory stays held after the calls return, as long as the
+A program holds its wire, its slots and its graph's pool
+(``held_bytes``): for a 4-frame 1080p GOP on the compact wire, 6.6 MB of
+wire and, as the card's allocator reserves it during the capture, 48 MB
+of pool on the fused route (25 MB of expanded levels, 12.5 MB of output
+stacks, 3 MB of zero planes, in whole segments) and 69 MB on the
+two-kernel route (a picture's int16 prediction more); so a full cache of
+1080p programs holds about 0.6 GB (measured on an NVIDIA H100 80GB HBM3
+at 700 W by ``chip_smoke.py``'s phase 8).  The dense programs of
+``decode_group`` and ``decode_gops_parallel`` hold what phase 9 measures
+(README).  That memory stays held after the calls return, as long as the
 process lives; ``CACHE.clear()`` closes the idle programs and gives it
 back to the caching allocator (``torch.cuda.empty_cache()`` then returns
 it to the card).
@@ -67,7 +84,8 @@ import torch
 
 from ..kernels import counters
 from ..kernels.decode import DecodeConstants
-from .gop import decode_gop_wire, zero_refs
+from .gop import decode_gop_batch, decode_gop_wire, zero_refs
+from .wire import unflatten_wire
 
 #: the most programs the process cache keeps (checked out and idle)
 MAX_PROGRAMS = 8
@@ -95,17 +113,39 @@ class ProgramKey(NamedTuple):
     quirk: bool
     quant: tuple                 # intra + non-intra matrices, spatial order
     device: str
+    refs_in: bool = False        # reference planes from the caller's slots
+    gops: int = 0                # GOPs stacked on the wire (0: one GOP)
 
 
 def program_key(spec: tuple, mb_h: int, mb_w: int, n_comps: int, impl: str,
-                quirk: bool, consts: DecodeConstants, device) -> ProgramKey:
-    """The key of the program that decodes a GOP of wire layout ``spec``."""
+                quirk: bool, consts: DecodeConstants, device, *,
+                refs_in: bool = False, gops: int = 0) -> ProgramKey:
+    """The key of the program that decodes a GOP of wire layout ``spec``:
+    from zero reference planes, or with ``refs_in`` from the reference
+    planes the caller copies into the program's slots; with ``gops`` the
+    wire holds that many GOPs on a leading axis, each decoded from those
+    reference planes."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return ProgramKey(spec, mb_h, mb_w, n_comps, impl, bool(quirk),
                       consts.intra_q_key + consts.non_intra_q_key,
-                      str(device))
+                      str(device), bool(refs_in), int(gops))
+
+
+def copy_in(pairs, after) -> None:
+    """Copy each (static buffer, source) pair on the current stream, once
+    the device has passed ``after`` (a program's "consumed" event; None
+    before its first run and on the CPU).  A source on the host is a
+    pageable buffer: the host waits for its copy."""
+    for dst, src in pairs:
+        if dst.shape != src.shape:
+            raise ValueError(f"a source of shape {tuple(src.shape)} for a "
+                             f"static buffer of {tuple(dst.shape)}")
+    if after is not None:
+        torch.cuda.current_stream(pairs[0][0].device).wait_event(after)
+    for dst, src in pairs:
+        dst.copy_(src)
 
 
 class GopProgram:
@@ -120,6 +160,9 @@ class GopProgram:
         self.device = torch.device(key.device)
         self.wire = torch.empty(key.spec[1], dtype=torch.uint8,
                                 device=self.device)
+        # the reference slots the caller copies its planes into
+        self.slots = (zero_refs(16 * key.mb_h, 16 * key.mb_w, key.n_comps,
+                                self.device) if key.refs_in else None)
         self.graph = None
         self.outs = None             # the graph's output stacks
         self.launches = None         # counter moves per replay, by name
@@ -131,32 +174,56 @@ class GopProgram:
 
     @property
     def held_bytes(self) -> int:
-        return self.key.spec[1] + self.pool_bytes
+        slots = sum(s.numel() for s in self.slots or ())
+        return self.key.spec[1] + slots + self.pool_bytes
 
     def body(self) -> tuple:
         """The eager GOP loop on the static wire -> (Y, Cb, Cr[, A])
-        stacks: what the graph captures, and what the first sight runs."""
+        stacks ((G, F, H, W) each with ``gops``): what the graph captures,
+        and what the first sight runs.  The reference planes are the slots
+        (``refs_in``), else zero planes made inside the body."""
         k = self.key
-        refs = zero_refs(16 * k.mb_h, 16 * k.mb_w, k.n_comps, self.device)
+        refs = self.slots or zero_refs(16 * k.mb_h, 16 * k.mb_w, k.n_comps,
+                                       self.device)
+        if k.gops:
+            return decode_gop_batch(unflatten_wire(self.wire, k.spec), refs,
+                                    self.consts, k.quirk, k.impl)
         outs, _ = decode_gop_wire(self.wire, k.spec, refs, self.consts,
                                   k.mb_h, k.mb_w, k.quirk, k.impl)
         return outs
 
     def load(self) -> tuple:
         """The static wire to copy the next GOP into, and the event that
-        copy must wait for on the device (None before the first run)."""
+        copy must wait for on the device (None before the first run).  A
+        ``refs_in`` program's reference planes go into :attr:`slots`,
+        after the same event."""
         if self.loaded:
             raise RuntimeError("the program's wire holds a GOP not yet "
                                "decoded")
         self.loaded = True
         return self.wire, self.consumed
 
+    def fill(self, wire: torch.Tensor, refs: tuple = ()) -> None:
+        """:meth:`load` the next GOP from ``wire``, a packed host buffer of
+        the key's layout, and ``refs``, the reference planes (``refs_in``
+        only), by :func:`copy_in` on the current stream."""
+        static, after = self.load()
+        slots = self.slots or ()
+        if len(refs) < len(slots):
+            raise ValueError(f"{len(refs)} reference planes for "
+                             f"{len(slots)} slots")
+        copy_in(((static, wire),) + tuple(zip(slots, refs)), after)
+
     def run(self, copied, metrics) -> tuple:
         """Decode the loaded GOP -> (new output stacks, the event after
         this GOP's device work, None on the CPU).  On a card, on the
-        current stream once ``copied`` (the upload's event) has passed:
-        the first run is the body, eagerly, then its capture; after that
-        one replay and a copy per plane stack.  On the CPU: the body."""
+        current stream once ``copied`` (the upload's event, None for a
+        copy on that stream) has passed: the first run is the body,
+        eagerly, then its capture; after that one replay and a copy per
+        plane stack.  On the CPU: the body.  The last picture of each
+        stack is the next GOP's reference plane: a view of the stacks
+        returned, never of the graph's own outputs, which the next replay
+        overwrites."""
         if self.device.type != "cuda":
             outs = self.body()
         else:
@@ -209,7 +276,7 @@ class GopProgram:
                 torch.cuda.synchronize(self.device)
             elif self.consumed is not None:
                 self.consumed.synchronize()
-        self.graph = self.outs = self.wire = None
+        self.graph = self.outs = self.wire = self.slots = None
 
 
 class ProgramCache:

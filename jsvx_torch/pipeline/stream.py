@@ -3,11 +3,17 @@
 The port of ``jsvx/pipeline/stream.py``.  The host parses every picture
 with the port's ``StreamParser`` (its C++ back end),
 packs each picture with :func:`jsvx_torch.kernels.decode.frame_to_device`,
-stacks a GOP's pictures, and copies the GOP to the device as one wire;
-the device decodes it with the ``impl`` chosen (see
-:mod:`jsvx_torch.pipeline.gop`).  The reference planes carry from GOP to
-GOP.  Stages are timed in ``Metrics``: ``parse``, ``pack``, ``h2d`` and
-``device_decode`` (ends when the GOP's planes are complete).
+stacks a GOP's pictures, and copies the GOP to the device as one wire,
+straight into the static wire of its GOP program
+(:mod:`jsvx_torch.pipeline.program`); the program decodes it with the
+``impl`` chosen (see :mod:`jsvx_torch.pipeline.gop`) from the reference
+planes copied into its slots, which carry from GOP to GOP.  A call holds
+its programs until it returns; they then stay in the process's cache (on
+a card up to 8, see README for what they hold at 1080p;
+``program.CACHE.clear()`` frees them).  Stages are timed in ``Metrics``:
+``parse``, ``pack``, ``h2d`` and ``device_decode`` (ends when the GOP's
+planes are complete); on a card the counters ``gop_program.captures``
+and ``gop_program.replays``.
 """
 
 from __future__ import annotations
@@ -20,54 +26,79 @@ from ..bitstream.bitio import BitReader
 from ..bitstream.container import StartCodeIndex, parse_container_header
 from ..bitstream.parser import StreamParser
 from ..coding import tables as T
-from ..kernels.decode import frame_to_device, make_constants
-from .gop import (decode_gop, frame_at, frame_decoder, stack_device_frames,
-                  zero_refs)
-from .packed_parse import BufferPool
-from .transcode import pack, synchronize, to_device
+from ..kernels.decode import frame_comp_keys, frame_to_device, make_constants
 from ..runtime.profiler import Metrics
-from .wire import unflatten_wire
+from .gop import frame_decoder, stack_device_frames, zero_refs
+from .packed_parse import BufferPool
+from .program import CACHE, GopProgram, ProgramSet, program_key
+from .transcode import pack, synchronize
 
 
 def decode_group(fts: list, refs: tuple, consts, device: torch.device, *,
                  quirk: bool = False, impl: str = "fused",
                  use_gop_scan: bool = True, pool: BufferPool | None = None,
-                 metrics: Metrics | None = None) -> tuple:
-    """Decode a group of parsed pictures on ``device`` through one dense
-    wire; returns (a (Y, Cb, Cr[, A]) tuple of uint8 planes per picture,
-    the last picture's planes as the next reference).
+                 metrics: Metrics | None = None,
+                 programs: ProgramSet | None = None) -> tuple:
+    """Decode a group of parsed pictures on ``device``; returns (a (Y, Cb,
+    Cr[, A]) tuple of uint8 planes per picture, the last picture's planes
+    as the next reference).
 
-    The pictures are packed with ``frame_to_device``, stacked, packed into
-    one pooled buffer and copied to ``device`` once.  ``use_gop_scan``
-    decodes them with the GOP loop (``decode_gop``); ``False``
-    decodes them one after the other, each from the reference before it,
-    through the per-frame decode of ``impl``.  Returns once the planes
-    are complete.  Stages ``pack``, ``h2d``, ``device_decode`` go to
-    ``metrics``.
+    ``use_gop_scan`` decodes the group as one GOP (jsvx's
+    ``decode_gop_scan``); ``False`` decodes its pictures one after the
+    other, each from the reference before it (jsvx's per-picture
+    ``decode_frame_jit``).  Either way each unit (the group, or one
+    picture) is packed with ``frame_to_device`` and stacked into one
+    pooled buffer, which is copied straight into the static wire of the
+    GOP program of its dense layout (:mod:`jsvx_torch.pipeline.program`,
+    key with ``refs_in``), with ``refs`` copied into the program's
+    reference slots, both on the current stream once the device has
+    passed the program's "consumed" event; then the program runs (on a
+    card: on the key's first sight its eager body, then its capture;
+    afterwards one replay and a copy per plane stack).  A picture's
+    layout depends on the picture size, the plane count and whether the
+    parser emitted ``mult``/``flags``, so every picture of a stream has
+    one key.  The programs come from ``programs`` (the caller's, held for
+    its call), else from the process cache, checked out for this call
+    only.  Returns once the planes are complete.  Stages ``pack``,
+    ``h2d``, ``device_decode`` and the counters ``gop_program.captures``
+    and ``.replays`` go to ``metrics``.
     """
     pool = pool or BufferPool()
     metrics = metrics or Metrics()
-    with metrics.timers.stage("pack"):
-        spec, buf = pack(stack_device_frames(
-            [frame_to_device(ft) for ft in fts]), pool)
-    with metrics.timers.stage("h2d"):
-        wire = to_device(buf, device)
-    pool.release(buf)
-    with metrics.timers.stage("device_decode"):
-        stacked = unflatten_wire(wire, spec)
-        if use_gop_scan:
-            outs, refs = decode_gop(stacked, refs, consts, quirk, impl)
-            frames = [tuple(p[i] for p in outs) for i in range(len(fts))]
-        else:
-            decode_frame = frame_decoder(impl)
-            frames = []
-            for i in range(len(fts)):
-                refs = decode_frame(frame_at(stacked, i), refs, consts,
-                                    quirk)
-                frames.append(refs)
-        synchronize(device)
+    held = programs if programs is not None else ProgramSet(CACHE)
+    frames = []
+    try:
+        for unit in [fts] if use_gop_scan else [[ft] for ft in fts]:
+            outs = _decode_unit(unit, refs, consts, device, quirk, impl,
+                                pool, metrics, held)
+            refs = tuple(o[-1] for o in outs)
+            frames.extend(tuple(o[i] for o in outs) for i in range(len(unit)))
+    finally:
+        if programs is None:
+            held.close()
     metrics.count("frames", len(fts))
     return frames, refs
+
+
+def _decode_unit(fts: list, refs: tuple, consts, device: torch.device,
+                 quirk: bool, impl: str, pool: BufferPool, metrics: Metrics,
+                 programs: ProgramSet) -> tuple:
+    """One dense wire of ``fts`` through its program, from ``refs`` ->
+    the (Y, Cb, Cr[, A]) stacks."""
+    with metrics.timers.stage("pack"):
+        stacked = stack_device_frames([frame_to_device(ft) for ft in fts])
+        spec, buf = pack(stacked, pool)
+    h, w = stacked["y"]["levels"].shape[-2:]
+    key = program_key(spec, h // 16, w // 16, len(frame_comp_keys(stacked)),
+                      impl, quirk, consts, device, refs_in=True)
+    prog = programs.get(key, lambda: GopProgram(key, consts))
+    with metrics.timers.stage("h2d"):
+        prog.fill(pool.host_tensor(buf), refs)
+    pool.release(buf)
+    with metrics.timers.stage("device_decode"):
+        outs, _ = prog.run(None, metrics)
+        synchronize(device)
+    return outs
 
 
 @dataclass
@@ -116,8 +147,9 @@ class StreamDecoder:
                metrics: Metrics | None = None) -> StreamResult:
         """Decode every picture.  ``impl``: ``"fused"`` (None) or
         ``"two_kernel"``.  ``use_gop_scan`` decodes a GOP (split at I
-        pictures) per wire through the GOP loop; ``False`` ships and
-        decodes one picture at a time through the same ``impl``."""
+        pictures) per wire through its GOP program; ``False`` ships and
+        decodes one picture at a time through the one-picture program of
+        the same ``impl`` (:func:`decode_group`)."""
         impl = impl or "fused"
         frame_decoder(impl)              # reject an unknown impl early
         metrics = metrics or Metrics()
@@ -141,13 +173,18 @@ class StreamDecoder:
             groups = [[ft] for ft in fts]
 
         pool = BufferPool()
+        programs = ProgramSet(CACHE)
         frames = []
-        for group in groups:
-            outs, refs = decode_group(group, refs, consts, dev,
-                                      quirk=self.quirk, impl=impl,
-                                      use_gop_scan=use_gop_scan, pool=pool,
-                                      metrics=metrics)
-            frames.extend(outs)
+        try:
+            for group in groups:
+                outs, refs = decode_group(group, refs, consts, dev,
+                                          quirk=self.quirk, impl=impl,
+                                          use_gop_scan=use_gop_scan,
+                                          pool=pool, metrics=metrics,
+                                          programs=programs)
+                frames.extend(outs)
+        finally:
+            programs.close()
         return StreamResult(frames=frames,
                             picture_types=[f.picture_type for f in fts],
                             width=self.meta.width, height=self.meta.height,

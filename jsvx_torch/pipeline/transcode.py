@@ -102,14 +102,6 @@ def pack(stacked: dict, pool: BufferPool) -> tuple:
     return spec, buf
 
 
-def to_device(buf: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One copy of a host wire to ``device``, complete when it returns.
-    On the CPU ``from_numpy`` aliases the buffer, so it is cloned before a
-    pool can hand the buffer to the next parse."""
-    host = torch.from_numpy(buf)
-    return host.clone() if device.type == "cpu" else host.to(device)
-
-
 @dataclass
 class Upload:
     """One GOP's wire on its way to the device."""

@@ -46,7 +46,7 @@ from ..kernels.decode import (DecodeConstants, comp_is_chroma,
                               frame_comp_keys)
 from ..kernels.mc import predict_picture_mc
 from ..kernels.recon import recon_picture
-from ..pipeline.gop import frame_at
+from ..pipeline.gop import frame_at, gop_at
 from .mesh import Mesh
 
 #: the per-block fields of a plane the decode reads (beside ``levels``)
@@ -119,12 +119,6 @@ def cut_band(stacked: dict, idx: int, n: int, device) -> dict:
         for f in BLOCK_FIELDS:
             out[key][f] = _tensor(c[f][:, r0 // 8:(r0 + rows) // 8], device)
     return out
-
-
-def gop_at(batch: dict, g: int) -> dict:
-    """GOP ``g`` of a batch whose leaves lead with the GOP axis."""
-    return {k: gop_at(v, g) if isinstance(v, dict) else v[g]
-            for k, v in batch.items()}
 
 
 def stack_gops(runs: list) -> tuple:

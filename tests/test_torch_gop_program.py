@@ -347,7 +347,9 @@ def test_transcode_order_on_programs(three_gops, monkeypatch, quirk):
     assert [log[i - 1] for i in sinks] == [f"wait {d}" for d in done]
     # every program went back to the cache, none left loaded
     assert cache.programs() and not any(p.loaded for p in cache.programs())
-    # and the planes are the per-picture decode's
+    # and the planes are the per-picture decode's (whose programs run
+    # unpatched)
+    monkeypatch.undo()
     got = [tuple(s[i].numpy() for s in kept[g]) for g in sorted(kept)
            for i in range(kept[g][0].shape[0])]
     want = [tuple(p.numpy() for p in f) for f in StreamDecoder(
