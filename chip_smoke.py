@@ -123,7 +123,23 @@ each printing its own lines:
    eager loop in turns (frames/s and ``device_decode`` per GOP or
    picture, min, quartiles and max).  Phase 6's ranks also hold their
    ``decode_gops_parallel`` share's program (a capture, then a replay)
-   to the eager loop.
+   to the eager loop;
+10. each GOP with its own sequence header's quant matrices, and the
+   driver entry points (``jsvx_torch.graft_entry``): a rendition-switch
+   stream (``tools/fixture.switch_stream``: GOP 0 with the default
+   matrices, GOP 1 with others; with and without a key map) through
+   ``transcode`` (both routes, compact and quirk), ``StreamDecoder``
+   (scan and per picture, both routes), the Decoder (GOP batch and
+   picture by picture, and after a seek into GOP 1) and the Player with
+   RGB, each on a cold program cache: per GOP within 1 LSB of the
+   float64 oracle, bit-equal to the CPU, the kernels counted, captures =
+   the distinct (layout, matrices) keys, two sets of matrices among them;
+   ``entry()`` on the card, one fused launch, bit-equal to its plain
+   version and to the CPU (also from random reference planes);
+   ``dryrun_multichip(8)``, 8 gloo ranks sharing this card on a (gop 2,
+   rows 4) mesh at 1088x256: its own checks, the MC and reconstruction
+   kernels once per picture in each rank, the halo's route and the
+   call's wall seconds.
 
 Since phase 9's paths run on their programs, so do phase 4's
 ``StreamDecoder``, Decoder and Player checks and phase 5's timings of
@@ -152,6 +168,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from jsvx_torch import graft_entry
 from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.bitstream.bitio import BitReader
 from jsvx_torch.bitstream.container import parse_container_header
@@ -180,7 +197,7 @@ from jsvx_torch.shard import (build_mesh, decode_gop_rows_sharded,
 from jsvx_torch.shard.launch import run_ranks
 from jsvx_torch.tools import (EncoderConfig, JsvEncoder, bench_mc,
                               decode_stream_oracle, psnr)
-from jsvx_torch.tools.fixture import ensure_fixture, zoom_clip
+from jsvx_torch.tools.fixture import ensure_fixture, switch_stream, zoom_clip
 from jsvx_torch.tools.refmath import ycbcr_to_rgb as ref_rgb
 from jsvx_torch.tools.synthetic import synthetic_gop
 
@@ -586,11 +603,12 @@ def mc_edge_cases(device) -> int:
 # Phase 4: the slice
 
 def collect(data: bytes, device, impl: str = "fused",
-            quirk: bool = False) -> tuple[list, object]:
+            quirk: bool = False,
+            metrics: Metrics | None = None) -> tuple[list, object]:
     got = {}
     res = transcode(data, lambda gi, outs: got.__setitem__(
         gi, [o.cpu() for o in outs]), device=device, impl=impl,
-        quirk_oddify_zeros=quirk)
+        quirk_oddify_zeros=quirk, metrics=metrics)
     frames = [tuple(s[i].numpy() for s in got[g]) for g in sorted(got)
               for i in range(got[g][0].shape[0])]
     return frames, res
@@ -2464,7 +2482,7 @@ def graph_vs_eager(label: str, data: bytes, dev, impl: str,
 VARIED_GOPS = ((0, 4), (1, 1), (0, 2), (1, 3), (0, 1), (1, 4), (0, 3),
                (1, 2), (0, 4), (1, 4), (0, 2), (1, 1))
 #: runs of each route per stream in the first-sight turns
-N_FIRST_SIGHT = 6
+N_FIRST_SIGHT = 4
 
 
 def varied_stream(data: bytes, cuts) -> tuple:
@@ -2748,7 +2766,7 @@ def program_phase(data: bytes, dev, card: str, cpu_frames: list,
 
 #: rounds of phase 9's turns (each route once a round, the first
 #: alternating)
-N_GROUP_TURNS = 8
+N_GROUP_TURNS = 6
 
 
 def group_frames(frames) -> list:
@@ -2980,6 +2998,211 @@ def group_phase(streams: dict, dev, card: str, data_1080: bytes) -> dict:
     return dict(rows=rows, held=held, turns=turns)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: each GOP with its own sequence header's quant matrices; the
+# driver entry points (jsvx_torch.graft_entry)
+
+#: ranks of the dry run, all on this card under gloo
+DRYRUN_RANKS = 8
+DRYRUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "jsvx_torch", "dryrun")
+#: pictures per GOP of the rendition-switch stream
+SWITCH_GOP = 3
+
+
+def gop_errors(frames: list, want: list) -> list:
+    """(differing pixels, largest difference) of each GOP of ``frames``
+    against ``want`` (the first planes of each frame)."""
+    check(len(frames) == len(want) > 0,
+          f"{len(frames)} frames against {len(want)}")
+    out = []
+    for g in range(0, len(want), SWITCH_GOP):
+        n = mx = 0
+        for fa, fb in zip(frames[g:g + SWITCH_GOP], want[g:g + SWITCH_GOP]):
+            for a, b in zip(fa, fb):
+                check(a.shape == b.shape and a.dtype == np.uint8,
+                      f"plane {a.dtype} {a.shape} vs {b.shape}")
+                d = np.abs(a.astype(int) - b.astype(int))
+                n += int((d > 0).sum())
+                mx = max(mx, int(d.max()))
+        out.append((n, mx))
+    return out
+
+
+def switch_paths(data: bytes) -> dict:
+    """Every device entry point of ``data`` (6 pictures, 2 GOPs), by name:
+    (``run(device, metrics)``, the launch counts of a run on the card,
+    whether the oracle decodes it with the oddify-zeros quirk)."""
+    n_f, n_g = 6, 2
+    paths = {}
+    for impl in ("fused", "two_kernel"):
+        per = (dict(fused=n_f) if impl == "fused"
+               else dict(mc=n_f, recon=n_f))
+        for quirk in (False, True):
+            paths[f"transcode_{impl}{'_quirk' if quirk else ''}"] = (
+                lambda d, m, impl=impl, quirk=quirk: collect(
+                    data, d, impl, quirk, m)[0],
+                want_counts(**per, expand=0 if quirk else n_g), quirk)
+        for scan in (True, False):
+            paths[f"stream_decoder_{'scan' if scan else 'picture'}_{impl}"] \
+                = (stream_decoder_path(data, scan, impl), want_counts(**per),
+                   False)
+    paths["decoder_gop_batch"] = (decoder_path(data, True),
+                                  want_counts(fused=n_f), False)
+    paths["decoder_picture"] = (decoder_path(data, False),
+                                want_counts(fused=n_f), False)
+    paths["player_rgb"] = (player_path(data), want_counts(fused=n_f), False)
+    return paths
+
+
+def switch_phase(dev, card: str) -> list:
+    """The rendition-switch stream (``tools/fixture.switch_stream``: GOP
+    0 with the default matrices, GOP 1 with others, each after its own
+    sequence header; with and without a key map) through every device
+    entry point on a cold program cache: per GOP within 1 LSB of the
+    float64 oracle, bit-equal to the same call on the CPU, the kernels
+    counted, captures = the distinct (layout, matrices) keys asked for,
+    and two sets of matrices among them; the Player's RGB within 1 LSB of
+    ``refmath`` on the oracle's planes; the Decoder after a seek into
+    GOP 1, GOP batch and picture by picture."""
+    rows = []
+    for km in (False, True):
+        data = switch_stream(km)
+        oracle = {q: [f.planes for f in decode_stream_oracle(data, q)]
+                  for q in (False, True)}
+        for name, (run, want, quirk) in switch_paths(data).items():
+            program.CACHE.clear()
+            keys, m = [], Metrics()
+            with requested_keys(keys):
+                frames, n = counted(lambda: run(dev, m))
+            cpu = run(torch.device("cpu"), Metrics())
+            errs = gop_errors([f[:3] for f in frames], oracle[quirk])
+            d_cpu = mismatching_pixels(frames, cpu)
+            captures = m.counters.get("gop_program.captures", 0)
+            row = dict(stream="switch" + ("-key-map" if km else ""),
+                       path=name, frames=len(frames),
+                       per_gop_vs_oracle=errs, vs_cpu_mismatching_pixels=d_cpu,
+                       launches=n, distinct_keys=len(set(keys)),
+                       distinct_matrices=len({k.quant for k in keys}),
+                       captures=captures)
+            if name == "player_rgb":
+                row["rgb_vs_refmath_max"] = max(
+                    int(np.abs(f[-1].astype(int) - ref_rgb(*o)[
+                        :f[-1].shape[0], :f[-1].shape[1]].astype(int)).max())
+                    for f, o in zip(frames, oracle[False]))
+                check(row["rgb_vs_refmath_max"] <= 1,
+                      f"switch {name}: RGB {row['rgb_vs_refmath_max']} LSB "
+                      f"from refmath")
+            emit("switch_path", card=card, **row)
+            check(all(mx <= 1 for _, mx in errs) and d_cpu == 0,
+                  f"switch {name}: per GOP {errs} from the oracle, {d_cpu} "
+                  f"pixels from the CPU")
+            check(n == want, f"switch {name}: launches {n}, want {want}")
+            check(captures == row["distinct_keys"] > 0
+                  and row["distinct_matrices"] == 2,
+                  f"switch {name}: {captures} captures, "
+                  f"{row['distinct_keys']} keys, "
+                  f"{row['distinct_matrices']} sets of matrices")
+            rows.append(row)
+        if km:
+            for scan in (True, False):
+                got, n = counted(lambda: decoder_frames(data, dev, scan,
+                                                        seek_gop=1))
+                cpu = decoder_frames(data, torch.device("cpu"), scan,
+                                     seek_gop=1)
+                errs = gop_errors(got, oracle[False][SWITCH_GOP:])
+                d_cpu = mismatching_pixels(got, cpu)
+                emit("switch_path", card=card, stream="switch-key-map",
+                     path="decoder_seek_gop1_" + ("batch" if scan
+                                                  else "picture"),
+                     frames=len(got), per_gop_vs_oracle=errs,
+                     vs_cpu_mismatching_pixels=d_cpu, launches=n)
+                check(all(mx <= 1 for _, mx in errs) and d_cpu == 0
+                      and n == want_counts(fused=SWITCH_GOP + (
+                          SWITCH_GOP if scan else 1)),
+                      f"switch: seek into GOP 1 ({errs}, {d_cpu} pixels "
+                      f"from the CPU, launches {n})")
+    return rows
+
+
+def entry_phase(dev) -> dict:
+    """``graft_entry.entry()`` on the card: one fused launch, bit-equal to
+    the plain version on the same card tensors and to the CPU; and the
+    same synthetic picture predicted from random reference planes (so its
+    vectors of up to 12 half-pels read real taps), kernel against plain."""
+    fn, args = graft_entry.entry(dev)
+    frame, refs, consts = args
+
+    def plain(refs):
+        return [decode_frame_plane(frame[k], refs[i], frame["is_p"], consts,
+                                   comp_is_chroma(i))
+                for i, k in enumerate(frame_comp_keys(frame))]
+
+    out, n = counted(lambda: fn(*args))
+    sync(dev)
+    cfn, cargs = graft_entry.entry("cpu")
+    d_plain = differing(out, plain(refs))
+    d_cpu = differing([o.cpu() for o in out], cfn(*cargs))
+    gen = torch.Generator().manual_seed(12)
+    rand = tuple(torch.randint(0, 256, tuple(r.shape), generator=gen,
+                               dtype=torch.uint8).to(dev) for r in refs)
+    out_r, n_r = counted(lambda: fn(frame, rand, consts))
+    sync(dev)
+    d_rand = differing(out_r, plain(rand))
+    row = dict(shapes=[tuple(o.shape) for o in out], launches=n,
+               vs_plain_mismatching_pixels=d_plain,
+               vs_cpu_mismatching_pixels=d_cpu,
+               random_refs=dict(launches=n_r,
+                                vs_plain_mismatching_pixels=d_rand),
+               lnz=[int(frame["y"]["lnz"].min()),
+                    int(frame["y"]["lnz"].max())],
+               max_abs_mv=int(frame["y"]["mv"].abs().max()))
+    emit("entry", **row)
+    check(n == n_r == want_counts(fused=1), f"entry: launches {n}, {n_r}")
+    check(d_plain == d_cpu == d_rand == 0,
+          f"entry: {d_plain}, {d_cpu}, {d_rand} pixels from the plain "
+          f"version")
+    return row
+
+
+def dryrun_phase(dev, card: str) -> dict:
+    """``graft_entry.dryrun_multichip(8)``: 8 gloo ranks sharing this
+    card, a (gop 2, rows 4) mesh at 1088x256; its own checks (bit-identical
+    to a 1x1 mesh, GOP 0 within 1 LSB of the fused decode), then each
+    rank's bands through the MC and reconstruction kernels (once per
+    picture each, no torch sideband expansion) and the fused decode once
+    per picture; its wall seconds and the halo's route."""
+    t0 = time.perf_counter()
+    rep = graft_entry.dryrun_multichip(DRYRUN_RANKS, dev,
+                                       workdir=DRYRUN_DIR)
+    wall = time.perf_counter() - t0
+    ranks = rep["ranks"]
+    row = dict(card=card, mesh=rep["mesh"], bytes=rep["bytes"],
+               height=rep["height"], width=rep["width"],
+               halo_y=rep["halo_y"], halo_route=rep["halo_route"],
+               call_s=wall, ranks_s=rep["seconds"],
+               band_decode_s=[r["seconds"] for r in ranks],
+               devices=sorted({r["device"] for r in ranks}),
+               launches_per_rank=[r["launches"] for r in ranks],
+               fused_launches=rep["fused_launches"],
+               vs_fused_max_abs_diff=rep["max_abs_diff"],
+               vs_fused_differing_pixels=rep["n_diff"],
+               what="call_s: the whole call (encode, parse, ranks, checks); "
+                    "ranks_s: the ranks from their start to their exit; "
+                    "band_decode_s: each rank's banded GOP decode (host "
+                    "clock, ends in a synchronise); a correctness path: "
+                    "the ranks share one card and each frame's halo goes "
+                    "through the host (gloo)")
+    emit("dryrun_multichip", **row)
+    check(len(ranks) == DRYRUN_RANKS
+          and all(r["launches"] == want_counts(mc=3, recon=3)
+                  for r in ranks)
+          and rep["fused_launches"] == 3 and rep["max_abs_diff"] <= 1,
+          f"dryrun: launches {row['launches_per_rank']}, fused "
+          f"{rep['fused_launches']}, {rep['max_abs_diff']} LSB")
+    return row
+
+
 def smoke(dev: torch.device) -> None:
     t_start = time.perf_counter()
 
@@ -3208,6 +3431,13 @@ def smoke(dev: torch.device) -> None:
         "48x64-dirty": (dirty, False, stream_frames(dirty, "cpu", "fused"),
                         3)}, dev, card, data_1080)
     emit("phase9", seconds=time.perf_counter() - t9)
+
+    # ---- 10. per-GOP quant matrices; the driver entry points -------------
+    t10 = time.perf_counter()
+    switch_phase(dev, card)
+    entry_phase(dev)
+    dryrun_phase(dev, card)
+    emit("phase10", seconds=time.perf_counter() - t10)
 
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jsvx", "bench")]

@@ -19,6 +19,10 @@ run on the CUDA card unless the caller passes ``device="cpu"``.
   streaming API with its device methods on torch (behind
   ``python -m jsvx_torch play``).
 * ``jsvx_torch.kernels.color`` — display colour (YCbCr -> RGB).
+* ``jsvx_torch.shard``     — the multi-rank decode over
+  ``torch.distributed`` (row bands, GOPs over ranks).
+* ``jsvx_torch.graft_entry`` — the driver entry points: ``entry()`` and
+  ``dryrun_multichip(n)`` (``python -m jsvx_torch.graft_entry``).
 """
 
 __version__ = "0.1.0"

@@ -45,7 +45,7 @@ from ..bitstream.container import (ContainerMeta, StartCodeIndex,
 from ..bitstream.parser import FrameTensors, StreamParser
 from ..bitstream.ranges import RangeBuffer
 from ..coding import tables as T
-from ..kernels.decode import make_constants
+from ..kernels.decode import make_constants, quant_key
 from ..pipeline.gop import zero_refs
 from ..pipeline.packed_parse import BufferPool
 from ..pipeline.stream import decode_group
@@ -355,9 +355,11 @@ class Decoder(EventDispatcher):
 
     def _decode(self, fts: list, use_gop_scan: bool) -> list:
         """Parsed pictures -> their planes on ``device``, the reference
-        carried."""
+        carried, with the quant matrices of the current sequence header
+        (the constants are rebuilt when a header, or a seek, brings other
+        matrices)."""
         seq = self.parser.seq
-        if self._consts is None:
+        if self._consts is None or self._consts.quant_key != quant_key(seq):
             self._consts = make_constants(seq, self.device)
         if self._refs is None:
             self._refs = zero_refs(seq.coded_height, seq.coded_width,

@@ -56,6 +56,12 @@ class DecodeConstants:
         return self.c_basis.device
 
     @property
+    def quant_key(self) -> tuple:
+        """The intra then the non-intra matrix, 128 ints (:func:`quant_key`
+        of the sequence these constants were made for)."""
+        return self.intra_q_key + self.non_intra_q_key
+
+    @property
     def qtab_host(self) -> tuple:
         """192 ints: intra matrix, non-intra matrix, scan position of each
         spatial position."""
@@ -76,18 +82,38 @@ class DecodeConstants:
         return tuple(self.c_basis.cpu().reshape(-1).tolist())
 
 
-def make_constants(seq, device) -> DecodeConstants:
+def quant_key(seq) -> tuple:
+    """The intra then the non-intra quant matrix of sequence header
+    ``seq`` (None: the defaults), 128 ints in spatial order."""
     intra_q = (seq.intra_q if seq is not None
                else T.DEFAULT_INTRA_QUANT_MATRIX)
     non_intra_q = (seq.non_intra_q if seq is not None
                    else T.DEFAULT_NON_INTRA_QUANT_MATRIX)
+    return tuple(int(x) for m in (intra_q, non_intra_q)
+                 for x in np.asarray(m).reshape(-1))
+
+
+def make_constants(seq, device) -> DecodeConstants:
+    key = quant_key(seq)
     return DecodeConstants(
         c_basis=torch.tensor(refmath.C_BASIS.astype(np.float32),
                              device=device),
-        intra_q_key=tuple(int(x) for x in np.asarray(intra_q).reshape(-1)),
-        non_intra_q_key=tuple(int(x)
-                              for x in np.asarray(non_intra_q).reshape(-1)),
-    )
+        intra_q_key=key[:64], non_intra_q_key=key[64:])
+
+
+def constants_per_seq(seqs: list, device) -> list:
+    """The constants of each sequence header of ``seqs``: one
+    :class:`DecodeConstants` per distinct pair of matrices, the same
+    object wherever the matrices repeat (a stream whose headers all
+    carry the same matrices gets one)."""
+    made: dict = {}
+    out = []
+    for seq in seqs:
+        key = quant_key(seq)
+        if key not in made:
+            made[key] = make_constants(seq, device)
+        out.append(made[key])
+    return out
 
 
 def _up8(a: torch.Tensor) -> torch.Tensor:

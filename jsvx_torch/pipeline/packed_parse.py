@@ -85,7 +85,24 @@ class BufferPool:
 
 def walk_stream(data: bytes):
     """Serial header walk: (meta, seq, groups) where ``groups[g]`` is the
-    list of (picture-header FrameTensors stub, start_bit) of GOP g."""
+    list of (picture-header FrameTensors stub, start_bit) of GOP g and
+    ``seq`` the stream's last sequence header."""
+    meta, seq, groups, _ = _walk(data)
+    return meta, seq, groups
+
+
+def walk_stream_seqs(data: bytes):
+    """The header walk of :func:`walk_stream`, with each group's own
+    sequence header: (meta, seqs, groups) where ``seqs[g]`` is the
+    ``SequenceInfo`` current at GOP g's first picture (the one whose
+    quant matrices decode it)."""
+    meta, _, groups, seqs = _walk(data)
+    return meta, seqs, groups
+
+
+def _walk(data: bytes):
+    """(meta, the last sequence header, groups, the sequence header
+    current at each group's first picture)."""
     data = bytes(data)
     r = BitReader(data)
     meta = parse_container_header(r)
@@ -93,6 +110,7 @@ def walk_stream(data: bytes):
     parser = StreamParser(use_native=False)
     parser.yuva = meta.yuva
     groups: list[list] = []
+    seqs: list = []
     pos = r.byte_pos
     while True:
         nxt = index.next_code(pos)
@@ -106,6 +124,7 @@ def walk_stream(data: bytes):
         elif code == T.START_GOP:
             parser.parse_gop_header(rr)
             groups.append([])
+            seqs.append(None)
             pos = rr.byte_pos
         elif code == T.START_PICTURE:
             hdr, start_bit = _parse_picture_header(parser, rr)
@@ -114,11 +133,15 @@ def walk_stream(data: bytes):
                 continue
             if not groups:
                 groups.append([])
+                seqs.append(None)
+            if not groups[-1]:
+                seqs[-1] = parser.seq
             groups[-1].append((hdr, start_bit))
             pos = _picture_end(index, rr.byte_pos, len(data))
         else:
             pos = off + 4
-    return meta, parser.seq, [g for g in groups if g]
+    kept = [(g, s) for g, s in zip(groups, seqs) if g]
+    return (meta, parser.seq, [g for g, _ in kept], [s for _, s in kept])
 
 
 @dataclass

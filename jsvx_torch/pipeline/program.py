@@ -129,7 +129,7 @@ def program_key(spec: tuple, mb_h: int, mb_w: int, n_comps: int, impl: str,
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return ProgramKey(spec, mb_h, mb_w, n_comps, impl, bool(quirk),
-                      consts.intra_q_key + consts.non_intra_q_key,
+                      consts.quant_key,
                       str(device), bool(refs_in), int(gops))
 
 

@@ -26,7 +26,8 @@ from ..bitstream.bitio import BitReader
 from ..bitstream.container import StartCodeIndex, parse_container_header
 from ..bitstream.parser import StreamParser
 from ..coding import tables as T
-from ..kernels.decode import frame_comp_keys, frame_to_device, make_constants
+from ..kernels.decode import (constants_per_seq, frame_comp_keys,
+                              frame_to_device)
 from ..runtime.profiler import Metrics
 from .gop import frame_decoder, stack_device_frames, zero_refs
 from .packed_parse import BufferPool
@@ -126,6 +127,11 @@ class StreamDecoder:
 
     def parse_all(self) -> list:
         """Host pass: all FrameTensors in stream order."""
+        return [ft for ft, _ in self._parse_pictures()]
+
+    def _parse_pictures(self) -> list:
+        """Host pass: (FrameTensors, the sequence header current at it)
+        for every picture, in stream order."""
         r, parser = self.reader, self.parser
         out = []
         while True:
@@ -141,43 +147,44 @@ class StreamDecoder:
             elif code == T.START_PICTURE:
                 ft = parser.parse_picture(r, self.index, len(self.data))
                 if ft is not None:
-                    out.append(ft)
+                    out.append((ft, parser.seq))
 
     def decode(self, use_gop_scan: bool = True, impl: str | None = None,
                metrics: Metrics | None = None) -> StreamResult:
-        """Decode every picture.  ``impl``: ``"fused"`` (None) or
+        """Decode every picture, each with the quant matrices of the
+        sequence header before it.  ``impl``: ``"fused"`` (None) or
         ``"two_kernel"``.  ``use_gop_scan`` decodes a GOP (split at I
-        pictures) per wire through its GOP program; ``False`` ships and
-        decodes one picture at a time through the one-picture program of
-        the same ``impl`` (:func:`decode_group`)."""
+        pictures, and where the matrices change) per wire through its GOP
+        program; ``False`` ships and decodes one picture at a time through
+        the one-picture program of the same ``impl`` and matrices
+        (:func:`decode_group`).  The reference planes carry across every
+        split."""
         impl = impl or "fused"
         frame_decoder(impl)              # reject an unknown impl early
         metrics = metrics or Metrics()
         dev = self.device
         with metrics.timers.stage("parse"):
-            fts = self.parse_all()
+            pictures = self._parse_pictures()
+        fts = [ft for ft, _ in pictures]
+        # one constants set per distinct pair of matrices, so a change of
+        # matrices is a change of object
+        consts = constants_per_seq([s for _, s in pictures], dev)
         seq = self.parser.seq
-        consts = make_constants(seq, dev)
         refs = zero_refs(seq.coded_height, seq.coded_width,
                          self.meta.n_components, dev)
-        if use_gop_scan:
-            groups, cur = [], []
-            for ft in fts:
-                if ft.is_intra_picture and cur:
-                    groups.append(cur)
-                    cur = []
-                cur.append(ft)
-            if cur:
-                groups.append(cur)
-        else:
-            groups = [[ft] for ft in fts]
+        groups = []                      # (pictures, their constants)
+        for ft, c in zip(fts, consts):
+            if (not use_gop_scan or ft.is_intra_picture or not groups
+                    or c is not groups[-1][1]):
+                groups.append(([], c))
+            groups[-1][0].append(ft)
 
         pool = BufferPool()
         programs = ProgramSet(CACHE)
         frames = []
         try:
-            for group in groups:
-                outs, refs = decode_group(group, refs, consts, dev,
+            for group, c in groups:
+                outs, refs = decode_group(group, refs, c, dev,
                                           quirk=self.quirk, impl=impl,
                                           use_gop_scan=use_gop_scan,
                                           pool=pool, metrics=metrics,

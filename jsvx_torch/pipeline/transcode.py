@@ -16,7 +16,10 @@ GOP while the device decodes this one (each plane of each frame by the
   the oddify-zeros quirk, which changes positions the compact wire does
   not carry.
 
-Each GOP is decoded by the GOP program of its wire layout
+Each GOP decodes with the quant matrices of the sequence header before it
+(the header walk records each GOP's, :func:`~jsvx_torch.pipeline.
+packed_parse.walk_stream_seqs`; one constants set per distinct pair of
+matrices), by the GOP program of its wire layout and matrices
 (:mod:`jsvx_torch.pipeline.program`, the port's counterpart of jsvx's
 compiled ``decode_gop_scan_wire``), which the call checks out for its
 duration; each wire is copied from its pooled host buffer straight into
@@ -68,13 +71,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.decode import make_constants
+from ..kernels.decode import constants_per_seq
 from ..kernels.expand import expand_compact_gop
 from ..runtime.multihost import GopManifest
 from ..runtime.profiler import Metrics
 from .gop import frame_decoder
 from .packed_parse import (BufferPool, parse_gop_compact, parse_gop_packed,
-                           walk_stream)
+                           walk_stream_seqs)
 from .program import CACHE, GopProgram, ProgramSet, program_key
 from .wire import flatten_wire, unflatten_wire, wire_spec
 
@@ -212,18 +215,21 @@ class _Run:
         self.manifest, self.metrics, self.quirk = manifest, metrics, quirk
         self.n_threads = n_parse_threads
         with metrics.timers.stage("parse"):
-            self.meta, self.seq, self.groups = walk_stream(data)
-        self.consts = make_constants(self.seq, device)
-        if device.type == "cuda":
-            # the basis's one copy from the card, before GOP 0: a key
-            # first seen later runs its eager loop without a sync
-            self.consts.c_basis_host
+            self.meta, self.seqs, self.groups = walk_stream_seqs(data)
+        # each GOP decodes with the matrices of its own sequence header:
+        # one constants set per distinct pair of matrices
+        self.consts = constants_per_seq(self.seqs, device)
         if manifest is None:
             self.todo = list(range(len(self.groups)))
         else:
             self.todo = [s.index for s in
                          manifest.pending(process_id, process_count)
                          if s.index < len(self.groups)]
+        if device.type == "cuda":
+            # each basis's one copy from the card, before GOP 0: a key
+            # first seen later runs its eager loop without a sync
+            for gi in self.todo:
+                self.consts[gi].c_basis_host
         self.pool = BufferPool(pin=device.type == "cuda")
         self.copier = WireCopier(device)
         self.programs = ProgramSet(CACHE)
@@ -231,7 +237,7 @@ class _Run:
         self.wire_total = 0
 
     def parse_dense(self, gi: int):
-        return parse_gop_packed(self.arr, self.groups[gi], self.seq,
+        return parse_gop_packed(self.arr, self.groups[gi], self.seqs[gi],
                                 self.meta, self.pool,
                                 n_threads=self.n_threads, index=gi)
 
@@ -240,11 +246,11 @@ class _Run:
         """Pack ``stacked`` into one pooled wire and start its copy into
         the static wire of its layout's GOP program."""
         spec, buf = pack(stacked, self.pool)
-        seq = self.seq
+        seq, consts = self.seqs[gi], self.consts[gi]
         key = program_key(spec, seq.mb_height, seq.mb_width,
                           self.meta.n_components, self.impl, self.quirk,
-                          self.consts, self.device)
-        program = self.programs.get(key, lambda: GopProgram(key, self.consts))
+                          consts, self.device)
+        program = self.programs.get(key, lambda: GopProgram(key, consts))
         wire, copied = self.copier.copy(self.pool.host_tensor(buf),
                                         *program.load())
         self.wire_total += buf.nbytes
@@ -308,7 +314,7 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
 
     def parse_one(gi: int) -> Upload:
         with metrics.timers.stage("parse"):
-            g = parse_gop_compact(run.arr, run.groups[gi], run.seq,
+            g = parse_gop_compact(run.arr, run.groups[gi], run.seqs[gi],
                                   run.meta, run.pool, buckets,
                                   n_threads=run.n_threads, index=gi)
             if not g.dirty:
@@ -362,7 +368,7 @@ def _probe_expand(run: _Run, up: Upload) -> None:
     (stage ``expand_probe_compile``), then the best of 3, each ending in a
     synchronise, as the gauge ``expand_probe_s_per_gop``: the host's
     unflatten and launch plus the kernel's device time."""
-    seq = run.seq
+    seq = run.seqs[up.index]
 
     def expand() -> None:
         expand_compact_gop(unflatten_wire(up.wire, up.spec), seq.mb_height,

@@ -7,15 +7,22 @@ encoded stream is cached under ``build/jsvx_torch/fixtures/`` at the root
 of the checkout (``build/`` is git-ignored), keyed by a hash of the
 port's encoder and the clip parameters, so a changed encoder can never
 serve a stale stream.
+
+:func:`switch_stream` is a rendition switch: GOPs of two encodes of one
+clip with different quant matrices, spliced into one stream, each GOP
+with its own sequence header (:func:`splice_gops`).
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import struct
 
 import numpy as np
 
+from ..bitstream.container import find_start_codes
+from ..coding import tables as T
 from . import encoder as _encoder
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -88,3 +95,61 @@ def ensure_fixture() -> str:
             f.write(data)
         os.replace(tmp, fix)
     return fix
+
+
+def _gop_payloads(data: bytes) -> tuple:
+    """(the container header's bytes, each GOP's bytes from its sequence
+    header on): the encoder writes a sequence header before every GOP."""
+    codes = find_start_codes(data)
+    starts = [int(o) for o, c in codes if c == T.START_SEQUENCE]
+    ends = starts[1:] + [len(data)]
+    return data[:starts[0]], [data[a:b] for a, b in zip(starts, ends)]
+
+
+def splice_gops(streams: list, picks: list) -> bytes:
+    """GOP ``g`` of ``streams[picks[g]]`` for each ``g``: encodes of one
+    clip at one size, so their GOPs line up.  The container header is
+    ``streams[0]``'s, its GOP key map (when it has one) pointed at the
+    spliced GOPs."""
+    parts = [_gop_payloads(s) for s in streams]
+    head = parts[0][0]
+    gops = [parts[p][1][g] for g, p in enumerate(picks)]
+    if len(head) > 8:                    # a key map: 16 bytes, then 8 a GOP
+        n = struct.unpack(">I", head[12:16])[0]
+        if n != len(gops):
+            raise ValueError(f"the key map holds {n} GOPs, not {len(gops)}")
+        entries, off = [], len(head)
+        for g, gop in enumerate(gops):
+            tc = struct.unpack(">I", head[20 + 8 * g:24 + 8 * g])[0]
+            entries.append(struct.pack(">II", off, tc))
+            off += len(gop)
+        head = head[:16] + b"".join(entries)
+    return head + b"".join(gops)
+
+
+#: the second rendition of :func:`switch_stream`: the intra matrix times 3
+#: and a flat non-intra matrix of 40
+SWITCH_INTRA_Q = (np.asarray(T.DEFAULT_INTRA_QUANT_MATRIX, np.int32)
+                  * 3).astype(np.uint8)
+SWITCH_NON_INTRA_Q = np.full(64, 40, np.uint8)
+
+
+def switch_clip() -> list:
+    """The clip of :func:`switch_stream`: 6 frames of 64x48."""
+    return zoom_clip(48, 64, 6, seed=11)
+
+
+def switch_stream(key_map: bool = False) -> bytes:
+    """A rendition switch at GOP 1: :func:`switch_clip` encoded twice at
+    GOP 3 and q 4, once with the default quant matrices and once with
+    :data:`SWITCH_INTRA_Q` and :data:`SWITCH_NON_INTRA_Q`; GOP 0 comes
+    from the first encode and GOP 1 from the second, each after its own
+    sequence header (with the container's GOP key map, or without)."""
+    clip = switch_clip()
+    h, w = clip[0][0].shape
+    cfg = dict(gop_size=3, quantizer_scale=4, key_map=key_map)
+    streams = [_encoder.JsvEncoder(w, h, _encoder.EncoderConfig(
+        **cfg, **extra)).encode(clip) for extra in (
+        {}, {"custom_intra_q": SWITCH_INTRA_Q,
+             "custom_non_intra_q": SWITCH_NON_INTRA_Q})]
+    return splice_gops(streams, [0, 1])

@@ -105,7 +105,7 @@ def test_ast_scan_finds_no_jsvx_bench_or_jax_import():
                  "shard/gop_parallel.py", "shard/launch.py",
                  "tools/synthetic.py", "tools/bench_scaling.py",
                  "pipeline/parallel_parse.py", "tools/bench_parse.py",
-                 "tools/bench_mc.py"):
+                 "tools/bench_mc.py", "graft_entry.py"):
         assert os.path.join("jsvx_torch", path) in found, path
     assert not {p: r for p, r in found.items() if r}
 
@@ -140,7 +140,8 @@ for name in ("jsvx_torch.shard", "jsvx_torch.shard.mesh",
              "jsvx_torch.shard.launch", "jsvx_torch.tools.synthetic",
              "jsvx_torch.tools.bench_scaling",
              "jsvx_torch.pipeline.parallel_parse",
-             "jsvx_torch.tools.bench_parse", "jsvx_torch.tools.bench_mc"):
+             "jsvx_torch.tools.bench_parse", "jsvx_torch.tools.bench_mc",
+             "jsvx_torch.graft_entry"):
     assert name in names, name
 import chip_smoke
 
@@ -196,6 +197,10 @@ consts = make_constants(None, "cpu")
 bands, _ = decode_gop_rows_sharded(gop, zero_refs(32, 48, 3, "cpu"), consts,
                                    build_mesh({"rows": 1}), device="cpu")
 assert bands[0].shape == (2, 32, 48), bands[0].shape
+from jsvx_torch.graft_entry import entry
+fn, args = entry(device="cpu")
+assert [tuple(p.shape) for p in fn(*args)] == [(128, 128), (64, 64),
+                                                (64, 64)]
 blocked =[m for m in sys.modules if m.split(".")[0] in ("jsvx", "bench",
                                                          "jax")]
 assert not blocked, blocked
