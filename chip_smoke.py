@@ -25,7 +25,13 @@ each printing its own lines:
    wire's expansion kernel (one launch per GOP, and its one-component
    case) against its plain version on every compact GOP of the 1080p
    fixture, the 320x320, CIF and YUVA streams, 0 differing elements on
-   every leaf;
+   every leaf; the colour kernel (one launch a frame) against its plain
+   version on the card and against the CPU, 0 differing bytes: every
+   (Y, Cb, Cr) triple (512x32768, without alpha, opaque and with an alpha
+   plane; also within 1 LSB of ``refmath``), every frame of the 1080p
+   fixture, the YUVA and CIF streams at its display crop (views), with
+   its alpha plane where it has one and opaque, the fixture's also at a
+   1920x1080 crop, and odd crops;
 4. the paths end to end on the card, each kernel counted (and no plain
    expansion of the compact wire on any of them):
    ``jsvx_torch.transcode`` of the 1080p fixture (the fused kernel once
@@ -42,7 +48,10 @@ each printing its own lines:
    picture; the fused kernel once per picture in each) bit-equal to
    ``StreamDecoder`` on the card and to the CPU, with a seek and with the
    quirk; the ``Player`` with RGB output driven to ``ended`` by a virtual
-   clock, its RGB bit-equal to the CPU's and within 1 LSB of ``refmath``;
+   clock (the colour kernel once per frame shown, its plain version
+   never), its RGB contiguous, of display size, bit-equal to the CPU's
+   and to the plain version of the coded frame cropped, and within 1 LSB
+   of ``refmath``;
    the YUVA stream's alpha through the Player, the 256-vector stream
    through the Decoder, and ``python -m jsvx_torch play`` in a subprocess;
 5. timings (CUDA events, median of 30 after warm-up; host clock for the
@@ -57,7 +66,11 @@ each printing its own lines:
    the two-kernel route also with its first designs and the torch
    sideband expansion), ``transcode`` in turns with the same loop on the
    plain expansion,
-   ``transcode``, ``StreamDecoder``, the Decoder, the Player and colour;
+   ``transcode``, ``StreamDecoder``, the Decoder, the Player (the
+   colour kernel once per frame in every run); the colour kernel per
+   1080p frame at a 1920x1080 display crop (views) and at the coded
+   size, warm and cold, in turns with its plain version, beside its
+   bytes and bound;
 6. row-band and GOP sharding (``jsvx_torch.shard``): a (gop 1, rows 1)
    mesh without a process group over both GOPs of the 1080p fixture; the
    MC and reconstruction launches of a P picture in four row bands, on
@@ -173,8 +186,9 @@ from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.bitstream.bitio import BitReader
 from jsvx_torch.bitstream.container import parse_container_header
 from jsvx_torch.coding.tables import START_PICTURE, START_SEQUENCE
-from jsvx_torch.kernels import build, counters, expand, fused, mc, recon
-from jsvx_torch.kernels.color import ycbcr_to_rgb
+from jsvx_torch.kernels import (build, color, counters, expand, fused, mc,
+                               recon)
+from jsvx_torch.kernels.color import ycbcr_to_rgb, ycbcr_to_rgb_plain
 from jsvx_torch.kernels.decode import (comp_is_chroma, decode_frame_plane,
                                        decode_frame_planes, frame_comp_keys,
                                        frame_to_device, make_constants,
@@ -199,7 +213,8 @@ from jsvx_torch.tools import (EncoderConfig, JsvEncoder, bench_mc,
                               decode_stream_oracle, psnr)
 from jsvx_torch.tools.fixture import ensure_fixture, switch_stream, zoom_clip
 from jsvx_torch.tools.refmath import ycbcr_to_rgb as ref_rgb
-from jsvx_torch.tools.synthetic import synthetic_gop
+from jsvx_torch.tools.synthetic import (TRIPLES_LUMA, colour_triples,
+                                        synthetic_gop)
 
 KERNEL_SOURCE = "jsvx_torch/csrc/fused_decode.cu"
 KERNEL_REPLACES = "jsvx/kernels/pallas_fused.py:51"
@@ -209,6 +224,8 @@ RECON_SOURCE = "jsvx_torch/csrc/recon.cu"
 RECON_REPLACES = "jsvx/kernels/pallas_decode.py:78"
 EXPAND_SOURCE = "jsvx_torch/csrc/expand.cu"
 EXPAND_REPLACES = "jsvx/kernels/expand.py:49"
+COLOUR_SOURCE = "jsvx_torch/csrc/color.cu"
+COLOUR_REPLACES = "jsvx/kernels/color.py:21"
 N_TIMED = 30
 N_E2E = 10
 SLEEP_MS = 25.0
@@ -219,8 +236,15 @@ F32_FLOP_PER_S = 67e12
 #: f32 operations per pixel of the IDCT (two passes of 8 multiplies and 7
 #: adds) and the prediction add
 FLOP_PER_CODED_PIXEL = 31
+#: f32 operations per pixel of the colour conversion: per channel three
+#: multiplies and three adds, the multiply by 255, the rounding and two
+#: clamps (the scaling, one division per sample, is counted apart)
+COLOUR_FLOP_PER_PIXEL = 30
 #: bytes written between two calls of a cold timing: past the 50 MB L2
 FLUSH_BYTES = 64 << 20
+#: a 1920x1080 stream's display crop of its 1920x1088 coded planes (the
+#: fixture itself is coded and shown at 1920x1088)
+CROP_1080 = (1080, 1920)
 NO_LIBRARY = ("no PyTorch call computes it: F.grid_sample does not round "
               "the half-pel taps as MPEG-1 does, and a matmul IDCT sums in "
               "its own order, possibly in TF32")
@@ -602,6 +626,85 @@ def mc_edge_cases(device) -> int:
 # ---------------------------------------------------------------------------
 # Phase 4: the slice
 
+def display_crop(planes, h: int, w: int) -> tuple:
+    """Views of a frame's planes cropped to ``h`` x ``w`` (the chroma to
+    ceil(h/2) x ceil(w/2)), as the Player's ``_to_rgb`` cuts them."""
+    hc, wc = -(-h // 2), -(-w // 2)
+    return (planes[0][:h, :w], planes[1][:hc, :wc], planes[2][:hc, :wc],
+            *(a[:h, :w] for a in planes[3:]))
+
+
+def colour_cases(streams: dict, dev) -> list:
+    """(label, Y, Cb, Cr, alpha) on the card for the colour kernel: every
+    (Y, Cb, Cr) triple (``tools/synthetic.colour_triples``: 512x32768)
+    without alpha, opaque and with a random alpha plane; every frame of
+    each stream in ``streams`` (label -> bytes) at its display crop
+    (views of the decoded planes), without alpha and opaque, and with its
+    alpha plane where it has one, and the 1080p frames also at CROP_1080;
+    odd crops of each stream's first frame."""
+    tri = [torch.from_numpy(p).to(dev) for p in colour_triples()]
+    rand_a = torch.from_numpy(np.random.default_rng(12).integers(
+        0, 256, tri[0].shape).astype(np.uint8)).to(dev)
+    cases = [("triples", *tri, m) for m in (False, True, rand_a)]
+    for label, data in streams.items():
+        meta, _, _ = walk_stream(data)
+        frames = [[torch.from_numpy(p).to(dev) for p in f]
+                  for f in stream_frames(data, dev, "fused")]
+        for i, f in enumerate(frames):
+            v = display_crop(f, meta.height, meta.width)
+            for m in (False, True) + tuple(v[3:]):
+                cases.append((f"{label}#{i}", *v[:3], m))
+            if f[0].shape[0] > CROP_1080[0]:
+                cases.append((f"{label}#{i} {CROP_1080}",
+                              *display_crop(f, *CROP_1080)[:3], False))
+        f = frames[0]
+        for h, w in ((f[0].shape[0] - 1, f[0].shape[1] - 3), (1, 1),
+                     (37, 5)):
+            v = display_crop(f, h, w)
+            cases.append((f"{label}#0 {h}x{w}", *v[:3], v[3] if len(v) > 3
+                          else True))
+    return cases
+
+
+def colour_vs_plain(streams: dict, dev) -> int:
+    """The colour kernel (one launch a call) against its plain version on
+    the same card tensors and against the CPU, on :func:`colour_cases`:
+    0 differing bytes required, contiguous (h, w, 3|4) output; on every
+    triple also within 1 LSB of ``refmath.ycbcr_to_rgb``.  Returns the
+    largest difference from the plain version."""
+    cases = colour_cases(streams, dev)
+    worst = d_plain = d_cpu = worst_ref = 0
+    before = color.launches
+    for label, y, cb, cr, m in cases:
+        got = ycbcr_to_rgb(y, cb, cr, m)
+        want = ycbcr_to_rgb_plain(y, cb, cr, m)
+        cpu = ycbcr_to_rgb(*(p.cpu() for p in (y, cb, cr)),
+                           m if isinstance(m, bool) else m.cpu())
+        sync(dev)
+        check(got.is_contiguous() and tuple(got.shape) == (
+            *y.shape, 3 if m is False else 4), f"colour {label}: output "
+            f"{tuple(got.shape)}, contiguous {got.is_contiguous()}")
+        worst = max(worst, int((got.int() - want.int()).abs().max()))
+        d_plain += int((got != want).sum())
+        d_cpu += int((got.cpu() != cpu).sum())
+        if label == "triples" and m is False:
+            worst_ref = int(np.abs(got.cpu().numpy().astype(int) - ref_rgb(
+                *(p.cpu().numpy() for p in (y, cb, cr))).astype(int)).max())
+    n = color.launches - before
+    emit("colour_vs_plain", cases=len(cases), launches=n,
+         values=sum(y.numel() * (3 if m is False else 4)
+                    for _, y, _, _, m in cases),
+         triples_values=3 * TRIPLES_LUMA[0] * TRIPLES_LUMA[1],
+         vs_plain_differing_bytes=d_plain, vs_plain_max_abs_err=worst,
+         vs_cpu_differing_bytes=d_cpu, triples_vs_refmath_max=worst_ref,
+         streams=list(streams))
+    check(n == len(cases), f"colour: {n} launches for {len(cases)} calls")
+    check(d_plain == 0 and d_cpu == 0, f"colour kernel differs from its "
+          f"plain version in {d_plain} bytes, from the CPU in {d_cpu}")
+    check(worst_ref <= 1, f"colour: {worst_ref} LSB from refmath")
+    return worst
+
+
 def collect(data: bytes, device, impl: str = "fused",
             quirk: bool = False,
             metrics: Metrics | None = None) -> tuple[list, object]:
@@ -651,12 +754,21 @@ def counted(run):
 
 
 def want_counts(fused: int = 0, mc: int = 0, recon: int = 0,
-                expand: int = 0) -> dict:
+                expand: int = 0, color: int = 0) -> dict:
     """The counts :func:`counted` must give for a run on the card: the
     launches of each kernel as given, and never a torch sideband
-    expansion or a plain coefficient expansion."""
+    expansion, a plain coefficient expansion or a plain colour
+    conversion."""
     return {"fused": fused, "mc": mc, "recon": recon, "expansions": 0,
-            "expand": expand, "expand_plain": 0}
+            "expand": expand, "expand_plain": 0, "color": color,
+            "color_plain": 0}
+
+
+def with_unloaded(counts: dict) -> dict:
+    """``counts`` from another process, with 0 for every counter of this
+    one that it lacks: a wrapper module that process never imported
+    registered no counter there, and launched nothing."""
+    return {**dict.fromkeys(counters.snapshot(), 0), **counts}
 
 
 def compact_gops(data: bytes) -> int:
@@ -750,8 +862,12 @@ def play(data: bytes, player) -> tuple[list, list, list]:
     for name in PLAYER_EVENTS:
         player.on(name, lambda *a, n=name: events.append(
             (n, int(player.ready_state))))
-    player.set_frame_sink(lambda f, t: rgb.append(
-        f.cpu().numpy() if isinstance(f, torch.Tensor) else None))
+    def sink(f, t):
+        check(not isinstance(f, torch.Tensor) or f.is_contiguous(),
+              "the Player's sink got a strided RGB frame")
+        rgb.append(f.cpu().numpy() if isinstance(f, torch.Tensor) else None)
+
+    player.set_frame_sink(sink)
     player.on("frameout", lambda f, t: planes.append(
         tuple(np.asarray(p.cpu() if isinstance(p, torch.Tensor) else p)
               for p in f.planes)))
@@ -808,12 +924,23 @@ def check_decoder(label: str, data: bytes, dev, n_planes: int,
               f"pixels differ from the CPU")
 
 
+def plain_rgb_crop(planes, h: int, w: int, dev) -> np.ndarray:
+    """The plain colour version of a coded frame's planes (numpy) on
+    ``dev``, cropped to ``h`` x ``w`` afterwards: jsvx's
+    convert-then-crop."""
+    t = [torch.from_numpy(q).to(dev) for q in planes]
+    rgb = ycbcr_to_rgb_plain(t[0], t[1], t[2], t[3] if len(t) > 3 else False)
+    return rgb[:h, :w].cpu().numpy()
+
+
 def check_player(label: str, data: bytes, dev, n_planes: int) -> dict:
     """The Player with RGB output on the card, against the same Player on
     the CPU: the same events, every RGB frame bit-equal, and within 1 LSB
     of ``refmath.ycbcr_to_rgb`` on the displayed planes; a YUVA stream's
-    alpha channel equals its decoded alpha plane.  Returns the launch
-    counts of the card's run."""
+    alpha channel equals its decoded alpha plane; each RGB frame (the
+    colour kernel once a frame, the plain version never) of display size,
+    contiguous, and bit-equal to the plain version of the coded frame on
+    the card, cropped.  Returns the launch counts of the card's run."""
     (ev, rgb, planes), n = counted(lambda: play(
         data, Player(PlayerConfig(emit_rgb=True), device=dev)))
     ev_c, rgb_c, _ = play(data, Player(PlayerConfig(emit_rgb=True),
@@ -829,13 +956,24 @@ def check_player(label: str, data: bytes, dev, n_planes: int) -> dict:
         if n_planes == 4:
             check(np.array_equal(x[..., 3], p[3][:h, :w]),
                   f"{label}: RGBA alpha is not the decoded alpha plane")
+    meta, _, _ = walk_stream(data)
+    d_crop = sum(int((plain_rgb_crop(p, meta.height, meta.width, dev)
+                      != x).sum()) for x, p in zip(rgb, planes))
     names = [e for e, _ in ev if e != "frameout"]
     emit("player", stream=label, frames_shown=n_f, rgb_shape=list(
         rgb[0].shape), launches=n, vs_cpu_mismatching_values=d_cpu,
+         vs_plain_of_coded_frame_cropped_differing_values=d_crop,
          max_abs_err_vs_refmath=worst, events_equal_cpu=ev == ev_c,
          first_event=names[0], last_event=names[-1])
     check(n["fused"] == n_f and n_f > 0,
           f"{label} Player: launches {n} for {n_f} frames")
+    check(n["color"] == n_f and n["color_plain"] == 0,
+          f"{label} Player: colour launches {n['color']}, plain "
+          f"{n['color_plain']} for {n_f} frames")
+    check(d_crop == 0 and all(x.shape[:2] == (meta.height, meta.width)
+                              for x in rgb),
+          f"{label} Player: RGB differs from the plain version's crop of "
+          f"the coded frame in {d_crop} values, or is not of display size")
     check(ev == ev_c and names[0] == "loadstart" and names[-1] == "ended",
           f"{label} Player: events differ from the CPU's or out of order")
     check(d_cpu == 0 and worst <= 1,
@@ -1446,11 +1584,13 @@ def decoder_view_copies(data: bytes, dev, card: str) -> dict:
 def player_rate(data: bytes, dev, card: str) -> dict:
     """The Player with RGB output from ``src`` to ``ended`` under a
     virtual clock, each RGB frame copied to the host by the sink (host
-    clock; median of N_E2E after a warm-up)."""
+    clock; median of N_E2E after a warm-up); in every run the colour
+    kernel once per frame shown and the plain version never."""
     wall = []
     for rep in range(N_E2E + 1):
         shown = []
         sync(dev)
+        counters.reset()
         t0 = time.perf_counter()
         p = Player(PlayerConfig(emit_rgb=True), device=dev)
         p.set_frame_sink(lambda rgb, t: shown.append(rgb.cpu()))
@@ -1463,46 +1603,111 @@ def player_rate(data: bytes, dev, card: str) -> dict:
         sync(dev)
         if rep:
             wall.append(time.perf_counter() - t0)
+        n = counters.snapshot()
         check(p.ended, "the Player did not reach ended")
+        check(n["color"] == len(shown) > 0 and n["color_plain"] == 0,
+              f"Player run {rep}: colour launches {n['color']}, plain "
+              f"{n['color_plain']} for {len(shown)} frames")
     med = statistics.median(wall)
     out = dict(card=card, frames=len(shown), median_s=med,
                frames_per_s=len(shown) / med, reps=N_E2E,
                wall_s_runs=[min(wall), max(wall)],
-               rgb_bytes_per_frame=shown[0].numel())
+               rgb_bytes_per_frame=shown[0].numel(),
+               colour_launches_per_frame=n["color"] / len(shown))
     emit("player_end_to_end", **out,
          what="src -> ended, virtual clock, emit_rgb, RGB to host per frame")
     return out
 
 
+def colour_work(h: int, w: int) -> tuple[int, int]:
+    """What one (h, w) frame's RGB conversion must move and compute: luma
+    and the chroma (ceil(h/2) x ceil(w/2) each) read once, the 3-channel
+    image written once; COLOUR_FLOP_PER_PIXEL operations a pixel and one
+    division a sample read (the scaling)."""
+    chroma = 2 * (-(-h // 2)) * (-(-w // 2))
+    return 4 * h * w + chroma, COLOUR_FLOP_PER_PIXEL * h * w + h * w + chroma
+
+
 def colour_time(data: bytes, dev, card: str) -> dict:
-    """Colour conversion of one 1080p frame on the card: device time
-    (CUDA events behind a spin, median of N_TIMED), per call with the
-    host in the loop, and with the RGB frame copied to the host as the
-    Player's sink would (host clock, median of N_TIMED)."""
+    """Colour of one 1080p frame on the card, at a 1920x1080 stream's
+    display crop (CROP_1080: views of the coded planes, as the Player's
+    ``_to_rgb`` passes them) and at the coded size (1920x1088, the
+    fixture's own display size): the kernel against its plain version,
+    device time warm (calls back to back behind a spin, median of
+    N_TIMED) and cold (a 64 MB write before each call), in turns (plain,
+    kernel, kernel, plain), beside the bytes it must move and its bound;
+    then the kernel per call with the host in the loop, and with the RGB
+    frame copied to the host as the Player's sink does (host clock,
+    median of N_TIMED).  One ``kernel_time`` line per shape."""
     d = Decoder(PlayerConfig(), device=dev)
     d.feed(0, data, total=len(data))
-    y, cb, cr = d.decode_frame().planes[:3]
-    h, w = d.meta.height, d.meta.width
+    planes = d.decode_frame().planes[:3]
+    h, w = CROP_1080
+    rows = {}
+    for shape, (y, cb, cr) in (("display", display_crop(planes, h, w)),
+                               ("coded", planes)):
+        fns = {"kernel": lambda: ycbcr_to_rgb(y, cb, cr),
+               "plain": lambda: ycbcr_to_rgb_plain(y, cb, cr)}
+        t = {name: dict(warm=[], cold=[], runs=[], cold_runs=[], ahead=1.0)
+             for name in fns}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            warm, ahead, _ = device_ms(fns[name], dev,
+                                       20 if name == "kernel" else 4)
+            cold = cold_ms(fns[name], dev)
+            r = t[name]
+            r["warm"] += warm
+            r["cold"] += cold
+            r["runs"].append(statistics.median(warm))
+            r["cold_runs"].append(statistics.median(cold))
+            r["ahead"] = min(r["ahead"], ahead)
+        work, flop = colour_work(*y.shape)
+        b_ms, b_by = bound(work, flop)
+        row = dict(ms=statistics.median(t["kernel"]["warm"]),
+                   cold_ms=statistics.median(t["kernel"]["cold"]),
+                   plain_ms=statistics.median(t["plain"]["warm"]),
+                   plain_cold_ms=statistics.median(t["plain"]["cold"]),
+                   bound_ms=b_ms, bound_by=b_by, bytes=work, flop=flop)
+        emit("kernel_time", kernel="ycbcr_to_rgb", stream="1080p",
+             shape=shape, card=card, frame=list(y.shape),
+             launches_per_frame=1, kernel_ms=row["ms"],
+             kernel_cold_ms=row["cold_ms"],
+             kernel_ms_runs=t["kernel"]["runs"],
+             kernel_cold_ms_runs=t["kernel"]["cold_runs"],
+             kernel_host_ahead_share=t["kernel"]["ahead"],
+             plain_ms=row["plain_ms"], plain_cold_ms=row["plain_cold_ms"],
+             plain_ms_runs=t["plain"]["runs"],
+             plain_cold_ms_runs=t["plain"]["cold_runs"],
+             plain_host_ahead_share=t["plain"]["ahead"],
+             speedup_vs_plain=row["plain_ms"] / row["ms"], bytes=work,
+             flop=flop, bound_ms=b_ms, bound_by=b_by,
+             bound_share=b_ms / row["ms"],
+             bound_share_cold=b_ms / row["cold_ms"],
+             achieved_gb_s=work / (row["ms"] * 1e-3) / 1e9,
+             library_ms=None, library="no PyTorch call computes it: the "
+             "plain version is some 25 torch ops", reps=2 * N_TIMED,
+             l2="warm: back to back behind a spin; cold: a 64 MB write "
+                "before each call")
+        rows[shape] = row
+    y, cb, cr = display_crop(planes, h, w)
 
     def colour():
-        return ycbcr_to_rgb(y, cb, cr)[:h, :w]
+        return ycbcr_to_rgb(y, cb, cr)
 
-    dev_t, cov, host = device_ms(colour, dev, 4)
     call = call_ms(colour, dev)
     to_host = []
     for _ in range(N_TIMED):
         t0 = time.perf_counter()
         colour().cpu()
         to_host.append((time.perf_counter() - t0) * 1e3)
-    px = y.numel()
-    out = dict(card=card, shape=list(y.shape), device_ms=statistics.median(
-        dev_t), call_ms=statistics.median(call),
-        with_copy_to_host_ms=statistics.median(to_host), host_ahead_share=cov,
-        host_enqueue_ms_x4=host, min_bytes=px * 3 // 2 + px * 3,
-        reps=N_TIMED)
-    out["achieved_gb_s"] = out["min_bytes"] / (out["device_ms"] * 1e-3) / 1e9
-    emit("colour_time", **out,
-         what="ycbcr_to_rgb, torch ops (about 25 elementwise kernels)")
+    out = dict(rows["display"], card=card, coded=rows["coded"],
+               call_ms=statistics.median(call),
+               with_copy_to_host_ms=statistics.median(to_host))
+    emit("colour_time", card=card, shape=list(y.shape),
+         device_ms=out["ms"], device_cold_ms=out["cold_ms"],
+         plain_device_ms=out["plain_ms"], call_ms=out["call_ms"],
+         with_copy_to_host_ms=out["with_copy_to_host_ms"], reps=N_TIMED,
+         what="ycbcr_to_rgb at the display crop: the colour kernel, one "
+              "launch (plain: the torch ops before it, about 25 kernels)")
     return out
 
 
@@ -3051,7 +3256,8 @@ def switch_paths(data: bytes) -> dict:
                                   want_counts(fused=n_f), False)
     paths["decoder_picture"] = (decoder_path(data, False),
                                 want_counts(fused=n_f), False)
-    paths["player_rgb"] = (player_path(data), want_counts(fused=n_f), False)
+    paths["player_rgb"] = (player_path(data),
+                           want_counts(fused=n_f, color=n_f), False)
     return paths
 
 
@@ -3195,7 +3401,7 @@ def dryrun_phase(dev, card: str) -> dict:
                     "through the host (gloo)")
     emit("dryrun_multichip", **row)
     check(len(ranks) == DRYRUN_RANKS
-          and all(r["launches"] == want_counts(mc=3, recon=3)
+          and all(with_unloaded(r["launches"]) == want_counts(mc=3, recon=3)
                   for r in ranks)
           and rep["fused_launches"] == 3 and rep["max_abs_diff"] <= 1,
           f"dryrun: launches {row['launches_per_rank']}, fused "
@@ -3259,6 +3465,8 @@ def smoke(dev: torch.device) -> None:
                               ("1080p", data_1080), ("320x320-256mv", hm),
                               ("48x64-dirty", dirty), ("cif-352x288", cif),
                               ("yuva-128x96", yuva)))
+    worst["color"] = colour_vs_plain({"1080p": data_1080, "yuva-128x96": yuva,
+                                      "cif-352x288": cif}, dev)
 
     # ---- 4. the slice -------------------------------------------------------
     n_compact = compact_gops(data_1080)
@@ -3307,7 +3515,8 @@ def smoke(dev: torch.device) -> None:
     # playback: the streaming Decoder and the Player
     check_decoder("1080p", data_1080, dev, n_planes,
                   stream_frames(data_1080, dev, "fused"))
-    check_player("1080p", data_1080, dev, n_planes)
+    # the display path: the Player with RGB (the colour kernel's main path)
+    player_main = check_player("1080p", data_1080, dev, n_planes)
     check_player("yuva-128x96", yuva, dev, 4)
     check_decoder_vs_oracle("320x320-256mv", hm, dev)
     check_play_cli(fix, res.n_frames, dev)
@@ -3400,7 +3609,7 @@ def smoke(dev: torch.device) -> None:
         decoder_rate(data_1080, dev, scan, card)
     decoder_view_copies(data_1080, dev, card)
     player_rate(data_1080, dev, card)
-    colour_time(data_1080, dev, card)
+    colour_t = colour_time(data_1080, dev, card)
 
     # ---- 6. row-band and GOP sharding ---------------------------------------
     shard = shard_phase(data_1080, fix, dev, card)
@@ -3469,7 +3678,13 @@ def smoke(dev: torch.device) -> None:
          "launches": main["expand"], "max_abs_err": worst["expand"],
          "ms": expand_t["ms"], "plain_ms": expand_t["plain_ms"],
          "bound_ms": expand_t["bound_ms"],
-         "bound_by": expand_t["bound_by"], "library_ms": None}]}),
+         "bound_by": expand_t["bound_by"], "library_ms": None},
+        {"name": "ycbcr_to_rgb", "route": "cuda",
+         "source": COLOUR_SOURCE, "replaces": COLOUR_REPLACES,
+         "launches": player_main["launches"]["color"],
+         "max_abs_err": worst["color"], "ms": colour_t["ms"],
+         "plain_ms": colour_t["plain_ms"], "bound_ms": colour_t["bound_ms"],
+         "bound_by": colour_t["bound_by"], "library_ms": None}]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,7 +18,8 @@ run on the CUDA card unless the caller passes ``device="cpu"``.
 * ``jsvx_torch.api``      — :class:`Decoder` and :class:`Player`, jsvx's
   streaming API with its device methods on torch (behind
   ``python -m jsvx_torch play``).
-* ``jsvx_torch.kernels.color`` — display colour (YCbCr -> RGB).
+* ``jsvx_torch.kernels.color`` — display colour (YCbCr -> RGB): one launch
+  of the hand-written colour kernel (``csrc/color.cu``) a frame on a card.
 * ``jsvx_torch.shard``     — the multi-rank decode over
   ``torch.distributed`` (row bands, GOPs over ranks).
 * ``jsvx_torch.graft_entry`` — the driver entry points: ``entry()`` and

@@ -30,11 +30,12 @@ planes once they are complete, so the render thread reads finished
 tensors.
 
 With ``config.emit_rgb`` colour is converted on the planes' device
-(:func:`jsvx_torch.kernels.color.ycbcr_to_rgb`; the sink receives a uint8
-tensor).  Each range request's completion is bound to its own
-``_PendingRequest``: a cancelled request's late completion is ignored
-(in jsvx it clears the newer request's slot and starts a duplicate range
-request, ``jsvx/api/player.py:514-516``).
+(:func:`jsvx_torch.kernels.color.ycbcr_to_rgb`, one launch of
+``csrc/color.cu`` a frame on a card; the sink receives a contiguous uint8
+tensor of the display size).  Each range request's completion is bound
+to its own ``_PendingRequest``: a cancelled request's late completion is
+ignored (in jsvx it clears the newer request's slot and starts a
+duplicate range request, ``jsvx/api/player.py:514-516``).
 """
 
 from __future__ import annotations
@@ -885,14 +886,18 @@ class Player(EventDispatcher):
         self._frame_sink = fn
 
     def _to_rgb(self, frame) -> torch.Tensor:
-        """Device colour convert + crop to container size (planes are
-        coded-size, multiples of 16)."""
+        """Device colour convert of the container-size crop (planes are
+        coded-size, multiples of 16): the planes go in as views of that
+        crop, so the conversion (one colour launch on a card) writes only
+        the display image, contiguous.  Each output pixel depends on its
+        own samples alone, so this is jsvx's convert-then-crop."""
         p = [torch.as_tensor(x, device=self.device) for x in frame.planes]
-        rgb = ycbcr_to_rgb(p[0], p[1], p[2], p[3] if len(p) >= 4 else False)
         h, w = self.video_height, self.video_width
-        if h and w and tuple(rgb.shape[:2]) != (h, w):
-            rgb = rgb[:h, :w]
-        return rgb
+        if h and w:
+            hc, wc = -(-h // 2), -(-w // 2)
+            p = [p[0][:h, :w], p[1][:hc, :wc], p[2][:hc, :wc],
+                 *(a[:h, :w] for a in p[3:])]
+        return ycbcr_to_rgb(p[0], p[1], p[2], p[3] if len(p) >= 4 else False)
 
     def _resume_allowed(self) -> bool:
         """After an underrun, resume only with >= buffer_min_sec of

@@ -9,6 +9,8 @@ drops jsvx's distinct-vector table (``mv_idx``, ``mv_table``,
 such pictures into a GOP: the 1080p high-motion GOP whose derived halo
 (f_code >= 6) reaches a four-band split's 272 rows, so the row-band decode
 takes the all-gather (``tests/test_sharding.py``'s ``_1080p_gop``).
+:func:`colour_triples` is the display colour's exhaustive input: every
+(Y, Cb, Cr) triple once.
 """
 
 from __future__ import annotations
@@ -77,3 +79,27 @@ def synthetic_gop(n_frames: int = 2, mb_h: int = 68, mb_w: int = 120,
                 for k, v in parts[0].items()}
 
     return stack(frames)
+
+
+#: :func:`colour_triples`'s plane shapes: 256**3 luma samples, a quarter
+#: as many of each chroma plane
+TRIPLES_LUMA = (512, 32768)
+TRIPLES_CHROMA = (256, 16384)
+
+
+def colour_triples() -> tuple:
+    """(Y, Cb, Cr) uint8 planes of 512x32768 and 256x16384 holding every
+    (Y, Cb, Cr) triple once under nearest 2x chroma upsampling: chroma
+    sample i (row-major) has (Cb, Cr) = (i % 256, (i // 256) % 256), and
+    the four luma samples it covers take the values 4 * (i // 65536) + 0,
+    1 (top row), 2, 3 (bottom row).  A row band of 2k luma rows and the
+    k chroma rows under it converts on its own."""
+    i = np.arange(TRIPLES_CHROMA[0] * TRIPLES_CHROMA[1], dtype=np.int64)
+    cb = (i & 255).astype(np.uint8).reshape(TRIPLES_CHROMA)
+    cr = ((i >> 8) & 255).astype(np.uint8).reshape(TRIPLES_CHROMA)
+    base = (4 * (i >> 16)).reshape(TRIPLES_CHROMA)
+    y = np.empty(TRIPLES_LUMA, np.uint8)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            y[dy::2, dx::2] = base + 2 * dy + dx
+    return y, cb, cr

@@ -233,7 +233,7 @@ def test_nvcc_command_targets_hopper_without_fma():
     assert obj[obj.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert "-fmad=false" in obj and cmd[-1] == "k.cu"
     assert build.SOURCES == build.LIBRARIES["kernels"] == (
-        "fused_decode.cu", "recon.cu", "mc.cu", "expand.cu")
+        "fused_decode.cu", "recon.cu", "mc.cu", "expand.cu", "color.cu")
     # the first designs, which only chip_smoke.py launches, build apart
     assert build.LIBRARIES["baselines"] == (
         "fused_decode_baseline.cu", "recon_baseline.cu", "mc_baseline.cu")

@@ -36,7 +36,7 @@ except ImportError:
     jnp = None
 
 import jsvx_torch.pipeline.transcode as ttr
-from jsvx_torch.kernels import counters, expand, fused, mc, recon
+from jsvx_torch.kernels import color, counters, expand, fused, mc, recon
 from jsvx_torch.kernels.decode import make_constants
 from jsvx_torch.pipeline import packed_parse as tpp
 from jsvx_torch.pipeline import program
@@ -247,7 +247,9 @@ def test_counter_registry_holds_every_wrapper_counter():
              "recon": (recon, "launches"),
              "expansions": (recon, "expansions"),
              "expand": (expand, "launches"),
-             "expand_plain": (expand, "plain_calls")}
+             "expand_plain": (expand, "plain_calls"),
+             "color": (color, "launches"),
+             "color_plain": (color, "plain_calls")}
     saved = counters.snapshot()
     try:
         assert set(saved) == set(names)
