@@ -9,8 +9,9 @@ each printing its own lines:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. the build of ``jsvx_torch/csrc/`` into ``build/jsvx_torch/`` (with the
    ptxas register and spill report): the kernels' library and, at the
-   same time, that of their first designs (``csrc/*_baseline.cu``, one
-   launch per plane), which only this script loads;
+   same time, that of their first designs (``csrc/*_baseline.cu``: the
+   picture kernels' one launch per plane, and the colour kernel's),
+   which only this script loads;
 3. each kernel against its plain PyTorch version on the same CUDA
    tensors, required bit-equal (0 differing pixels), and against its
    first design: the fused decode kernel, the MC kernel and the
@@ -26,7 +27,8 @@ each printing its own lines:
    case) against its plain version on every compact GOP of the 1080p
    fixture, the 320x320, CIF and YUVA streams, 0 differing elements on
    every leaf; the colour kernel (one launch a frame) against its plain
-   version on the card and against the CPU, 0 differing bytes: every
+   version on the card, against the CPU and against its first design
+   (``csrc/color_baseline.cu``), 0 differing bytes: every
    (Y, Cb, Cr) triple (512x32768, without alpha, opaque and with an alpha
    plane; also within 1 LSB of ``refmath``), every frame of the 1080p
    fixture, the YUVA and CIF streams at its display crop (views), with
@@ -69,8 +71,9 @@ each printing its own lines:
    ``transcode``, ``StreamDecoder``, the Decoder, the Player (the
    colour kernel once per frame in every run); the colour kernel per
    1080p frame at a 1920x1080 display crop (views) and at the coded
-   size, warm and cold, in turns with its plain version, beside its
-   bytes and bound;
+   size, warm and cold, in turns with its first design and its plain
+   version, beside its bytes, its bound and both kernels' ptxas
+   report;
 6. row-band and GOP sharding (``jsvx_torch.shard``): a (gop 1, rows 1)
    mesh without a process group over both GOPs of the 1080p fixture; the
    MC and reconstruction launches of a P picture in four row bands, on
@@ -168,8 +171,10 @@ the port's own encoder, oracle and fixture make and check the streams.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -404,6 +409,57 @@ def recon_first_design(levels: torch.Tensor, mult: torch.Tensor,
         out.data_ptr(), h, w, int(quirk), levels.device.index or 0,
         torch.cuda.current_stream(levels.device).cuda_stream)
     check(rc == 0, f"first-design recon launch failed: cudaError_t {rc}")
+    return out
+
+
+def colour_first_design(y: torch.Tensor, cb: torch.Tensor,
+                        cr: torch.Tensor, alpha) -> torch.Tensor:
+    """One frame through the colour kernel's first design
+    (``csrc/color_baseline.cu``), which nothing else launches: the
+    arguments and output of ``ycbcr_to_rgb`` on uint8 planes on a card,
+    not counted."""
+    a = None if isinstance(alpha, bool) else alpha
+    mode = (color.NO_ALPHA if alpha is False else
+            color.OPAQUE if alpha is True else color.ALPHA_PLANE)
+    planes = [color._rows(p) for p in (y, cb, cr)] + (
+        [color._rows(a)] if a is not None else [])
+    h, w = y.shape
+    out = torch.empty((h, w, 3 if mode == color.NO_ALPHA else 4),
+                      dtype=torch.uint8, device=y.device)
+    ptrs = [p.data_ptr() for p in planes] + [None] * (4 - len(planes))
+    strides = [p.stride(0) for p in planes] + [0] * (4 - len(planes))
+    rc = build.load("baselines").lib.jsvx_colour_frame_baseline(
+        (ctypes.c_void_p * 4)(*ptrs), (ctypes.c_longlong * 4)(*strides),
+        h, w, mode, color._COEFFS.ctypes.data, out.data_ptr(),
+        y.device.index or 0, torch.cuda.current_stream(y.device).cuda_stream)
+    check(rc == 0, f"first-design colour launch failed: cudaError_t {rc}")
+    return out
+
+
+def ptxas_report(log: str, fragment: str) -> list:
+    """Registers, shared memory and spills of each kernel whose (mangled)
+    name holds ``fragment``, from a library's ``-Xptxas -v`` log."""
+    out, cur, spill = [], None, (None, None)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1) if fragment in m.group(1) else None
+            spill = (None, None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(dict(function=cur, registers=int(m.group(1)),
+                            static_smem_bytes=int(smem.group(1)) if smem
+                            else 0, spill_store_bytes=spill[0],
+                            spill_load_bytes=spill[1]))
+            cur = None
     return out
 
 
@@ -668,16 +724,18 @@ def colour_cases(streams: dict, dev) -> list:
 
 def colour_vs_plain(streams: dict, dev) -> int:
     """The colour kernel (one launch a call) against its plain version on
-    the same card tensors and against the CPU, on :func:`colour_cases`:
-    0 differing bytes required, contiguous (h, w, 3|4) output; on every
-    triple also within 1 LSB of ``refmath.ycbcr_to_rgb``.  Returns the
-    largest difference from the plain version."""
+    the same card tensors, against the CPU and against its first design
+    (``csrc/color_baseline.cu``), on :func:`colour_cases`: 0 differing
+    bytes required, contiguous (h, w, 3|4) output; on every triple also
+    within 1 LSB of ``refmath.ycbcr_to_rgb``.  Returns the largest
+    difference from the plain version."""
     cases = colour_cases(streams, dev)
-    worst = d_plain = d_cpu = worst_ref = 0
+    worst = d_plain = d_cpu = d_first = worst_ref = 0
     before = color.launches
     for label, y, cb, cr, m in cases:
         got = ycbcr_to_rgb(y, cb, cr, m)
         want = ycbcr_to_rgb_plain(y, cb, cr, m)
+        first = colour_first_design(y, cb, cr, m)
         cpu = ycbcr_to_rgb(*(p.cpu() for p in (y, cb, cr)),
                            m if isinstance(m, bool) else m.cpu())
         sync(dev)
@@ -686,6 +744,7 @@ def colour_vs_plain(streams: dict, dev) -> int:
             f"{tuple(got.shape)}, contiguous {got.is_contiguous()}")
         worst = max(worst, int((got.int() - want.int()).abs().max()))
         d_plain += int((got != want).sum())
+        d_first += int((got != first).sum())
         d_cpu += int((got.cpu() != cpu).sum())
         if label == "triples" and m is False:
             worst_ref = int(np.abs(got.cpu().numpy().astype(int) - ref_rgb(
@@ -696,11 +755,14 @@ def colour_vs_plain(streams: dict, dev) -> int:
                     for _, y, _, _, m in cases),
          triples_values=3 * TRIPLES_LUMA[0] * TRIPLES_LUMA[1],
          vs_plain_differing_bytes=d_plain, vs_plain_max_abs_err=worst,
-         vs_cpu_differing_bytes=d_cpu, triples_vs_refmath_max=worst_ref,
-         streams=list(streams))
+         vs_cpu_differing_bytes=d_cpu,
+         vs_first_design_differing_bytes=d_first,
+         triples_vs_refmath_max=worst_ref, streams=list(streams))
     check(n == len(cases), f"colour: {n} launches for {len(cases)} calls")
-    check(d_plain == 0 and d_cpu == 0, f"colour kernel differs from its "
-          f"plain version in {d_plain} bytes, from the CPU in {d_cpu}")
+    check(d_plain == 0 and d_cpu == 0 and d_first == 0,
+          f"colour kernel differs from its plain version in {d_plain} "
+          f"bytes, from the CPU in {d_cpu}, from its first design in "
+          f"{d_first}")
     check(worst_ref <= 1, f"colour: {worst_ref} LSB from refmath")
     return worst
 
@@ -1628,31 +1690,42 @@ def colour_work(h: int, w: int) -> tuple[int, int]:
     return 4 * h * w + chroma, COLOUR_FLOP_PER_PIXEL * h * w + h * w + chroma
 
 
-def colour_time(data: bytes, dev, card: str) -> dict:
-    """Colour of one 1080p frame on the card, at a 1920x1080 stream's
-    display crop (CROP_1080: views of the coded planes, as the Player's
-    ``_to_rgb`` passes them) and at the coded size (1920x1088, the
-    fixture's own display size): the kernel against its plain version,
-    device time warm (calls back to back behind a spin, median of
-    N_TIMED) and cold (a 64 MB write before each call), in turns (plain,
-    kernel, kernel, plain), beside the bytes it must move and its bound;
-    then the kernel per call with the host in the loop, and with the RGB
-    frame copied to the host as the Player's sink does (host clock,
-    median of N_TIMED).  One ``kernel_time`` line per shape."""
-    d = Decoder(PlayerConfig(), device=dev)
-    d.feed(0, data, total=len(data))
-    planes = d.decode_frame().planes[:3]
+def colour_plan(y, cb, cr) -> dict:
+    """The launch plan of ``ycbcr_to_rgb(y, cb, cr)`` on the card."""
+    plan = color.launch_plan(
+        *y.shape, 3, [p.stride(0) for p in (y, cb, cr)],
+        [p.data_ptr() for p in (y, cb, cr)], 0)
+    return dict(grid=plan.grid, seg_w=plan.seg_w, n_segs=plan.n_segs,
+                flags=plan.flags, threads=plan.threads)
+
+
+def colour_kernel_times(planes, dev, card: str) -> dict:
+    """Colour of one 1080p frame's (Y, Cb, Cr) planes on the card, at a
+    1920x1080 stream's display crop (CROP_1080: views of the coded
+    planes, as the Player's ``_to_rgb`` passes them) and at the coded
+    size: the kernel against its first design (``csrc/color_baseline.cu``)
+    and its plain version, device time warm (calls back to back behind a
+    spin, median of N_TIMED) and cold (a 64 MB write before each call), in
+    turns (plain, first design, kernel, kernel, first design, plain),
+    beside the bytes it must move, its bound and both kernels' ptxas
+    report.  One ``kernel_time`` line per shape."""
+    ptxas = {name: ptxas_report(build.load(lib).log, "colour_frame_kernel")
+             for name, lib in (("kernel", "kernels"),
+                               ("first_design", "baselines"))}
     h, w = CROP_1080
     rows = {}
-    for shape, (y, cb, cr) in (("display", display_crop(planes, h, w)),
-                               ("coded", planes)):
+    order = ("plain", "first_design", "kernel", "kernel", "first_design",
+             "plain")
+    for shape, (y, cb, cr) in (("display", display_crop(planes[:3], h, w)),
+                               ("coded", tuple(planes[:3]))):
         fns = {"kernel": lambda: ycbcr_to_rgb(y, cb, cr),
+               "first_design": lambda: colour_first_design(y, cb, cr, False),
                "plain": lambda: ycbcr_to_rgb_plain(y, cb, cr)}
         t = {name: dict(warm=[], cold=[], runs=[], cold_runs=[], ahead=1.0)
              for name in fns}
-        for name in ("plain", "kernel", "kernel", "plain"):
+        for name in order:
             warm, ahead, _ = device_ms(fns[name], dev,
-                                       20 if name == "kernel" else 4)
+                                       4 if name == "plain" else 20)
             cold = cold_ms(fns[name], dev)
             r = t[name]
             r["warm"] += warm
@@ -1662,10 +1735,12 @@ def colour_time(data: bytes, dev, card: str) -> dict:
             r["ahead"] = min(r["ahead"], ahead)
         work, flop = colour_work(*y.shape)
         b_ms, b_by = bound(work, flop)
-        row = dict(ms=statistics.median(t["kernel"]["warm"]),
-                   cold_ms=statistics.median(t["kernel"]["cold"]),
-                   plain_ms=statistics.median(t["plain"]["warm"]),
-                   plain_cold_ms=statistics.median(t["plain"]["cold"]),
+        ms = {name: statistics.median(r["warm"]) for name, r in t.items()}
+        cold = {name: statistics.median(r["cold"]) for name, r in t.items()}
+        row = dict(ms=ms["kernel"], cold_ms=cold["kernel"],
+                   first_design_ms=ms["first_design"],
+                   first_design_cold_ms=cold["first_design"],
+                   plain_ms=ms["plain"], plain_cold_ms=cold["plain"],
                    bound_ms=b_ms, bound_by=b_by, bytes=work, flop=flop)
         emit("kernel_time", kernel="ycbcr_to_rgb", stream="1080p",
              shape=shape, card=card, frame=list(y.shape),
@@ -1674,21 +1749,46 @@ def colour_time(data: bytes, dev, card: str) -> dict:
              kernel_ms_runs=t["kernel"]["runs"],
              kernel_cold_ms_runs=t["kernel"]["cold_runs"],
              kernel_host_ahead_share=t["kernel"]["ahead"],
+             first_design_ms=row["first_design_ms"],
+             first_design_cold_ms=row["first_design_cold_ms"],
+             first_design_ms_runs=t["first_design"]["runs"],
+             first_design_cold_ms_runs=t["first_design"]["cold_runs"],
+             first_design_host_ahead_share=t["first_design"]["ahead"],
              plain_ms=row["plain_ms"], plain_cold_ms=row["plain_cold_ms"],
              plain_ms_runs=t["plain"]["runs"],
              plain_cold_ms_runs=t["plain"]["cold_runs"],
              plain_host_ahead_share=t["plain"]["ahead"],
-             speedup_vs_plain=row["plain_ms"] / row["ms"], bytes=work,
-             flop=flop, bound_ms=b_ms, bound_by=b_by,
+             speedup_vs_plain=row["plain_ms"] / row["ms"],
+             speedup_vs_first_design=row["first_design_ms"] / row["ms"],
+             bytes=work, flop=flop, bound_ms=b_ms, bound_by=b_by,
              bound_share=b_ms / row["ms"],
              bound_share_cold=b_ms / row["cold_ms"],
+             first_design_bound_share=b_ms / row["first_design_ms"],
+             first_design_bound_share_cold=b_ms
+             / row["first_design_cold_ms"],
              achieved_gb_s=work / (row["ms"] * 1e-3) / 1e9,
+             first_design_achieved_gb_s=work
+             / (row["first_design_ms"] * 1e-3) / 1e9,
+             plan=colour_plan(y, cb, cr), ptxas=ptxas,
              library_ms=None, library="no PyTorch call computes it: the "
              "plain version is some 25 torch ops", reps=2 * N_TIMED,
+             order=list(order),
              l2="warm: back to back behind a spin; cold: a 64 MB write "
                 "before each call")
         rows[shape] = row
-    y, cb, cr = display_crop(planes, h, w)
+    return rows
+
+
+def colour_time(data: bytes, dev, card: str) -> dict:
+    """Colour of one 1080p frame of ``data`` on the card
+    (:func:`colour_kernel_times`), then the kernel per call at the display
+    crop with the host in the loop, and with the RGB frame copied to the
+    host as the Player's sink does (host clock, median of N_TIMED)."""
+    d = Decoder(PlayerConfig(), device=dev)
+    d.feed(0, data, total=len(data))
+    planes = d.decode_frame().planes[:3]
+    rows = colour_kernel_times(planes, dev, card)
+    y, cb, cr = display_crop(planes, *CROP_1080)
 
     def colour():
         return ycbcr_to_rgb(y, cb, cr)
@@ -1704,6 +1804,7 @@ def colour_time(data: bytes, dev, card: str) -> dict:
                with_copy_to_host_ms=statistics.median(to_host))
     emit("colour_time", card=card, shape=list(y.shape),
          device_ms=out["ms"], device_cold_ms=out["cold_ms"],
+         first_design_device_ms=out["first_design_ms"],
          plain_device_ms=out["plain_ms"], call_ms=out["call_ms"],
          with_copy_to_host_ms=out["with_copy_to_host_ms"], reps=N_TIMED,
          what="ycbcr_to_rgb at the display crop: the colour kernel, one "

@@ -6,9 +6,9 @@ into one shared library with a plain C interface, under
 ``build/jsvx_torch/<key>/`` at the root of the checkout (``build/`` is
 git-ignored).  There are two libraries: ``"kernels"``, the five kernels
 of the port's paths (the three picture kernels, the compact wire's
-expansion and the display colour), and ``"baselines"``, the picture
-kernels' first designs, which only ``chip_smoke.py`` loads (to time them
-in turns with the kernels).  The key is a hash of the library's
+expansion and the display colour), and ``"baselines"``, the first
+designs of the picture kernels and of the colour kernel, which only
+``chip_smoke.py`` loads (to time them in turns with the kernels).  The key is a hash of the library's
 sources, of every header in ``csrc/`` and of the command, so an edited
 file builds anew and an unchanged tree is loaded from disk.  Nothing is
 built at import time.
@@ -28,13 +28,13 @@ from dataclasses import dataclass
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 #: the sources of each library: the kernels the decode and the display
-#: run, and the picture kernels' first designs (``*_baseline.cu``), which
-#: only ``chip_smoke.py`` launches
+#: run, and the first designs of the picture and colour kernels
+#: (``*_baseline.cu``), which only ``chip_smoke.py`` launches
 LIBRARIES = {
     "kernels": ("fused_decode.cu", "recon.cu", "mc.cu", "expand.cu",
                 "color.cu"),
     "baselines": ("fused_decode_baseline.cu", "recon_baseline.cu",
-                  "mc_baseline.cu"),
+                  "mc_baseline.cu", "color_baseline.cu"),
 }
 SOURCES = LIBRARIES["kernels"]
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "jsvx_torch")
@@ -49,12 +49,13 @@ ENTRY_POINTS = {
         "jsvx_recon_picture": _PICTURE_ARGS,
         "jsvx_mc_picture": [_I, _P, _P, _I, _I, _P],
         "jsvx_expand_gop": [_I, _P, _P, _I, _P, _I, _P],
-        "jsvx_colour_frame": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
+        "jsvx_colour_frame": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     },
     "baselines": {
         "jsvx_fused_decode_plane_baseline": [_P] * 11 + [_I] * 5 + [_P],
         "jsvx_recon_plane_baseline": [_P] * 7 + [_I] * 4 + [_P],
         "jsvx_mc_plane_baseline": [_P] * 4 + [_I] * 4 + [_P],
+        "jsvx_colour_frame_baseline": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
     },
 }
 

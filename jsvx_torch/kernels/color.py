@@ -8,25 +8,30 @@ no Pallas kernel), which its Player calls once per displayed frame.
 On a card, :func:`ycbcr_to_rgb` is one launch of the colour kernel
 (``csrc/color.cu``) per frame: a tensor on a CUDA device launches the
 kernel or raises, with no fallback, and the kernel reads each plane
-through its own row stride, so cropped views need no copy.  A tensor on
+through its own row stride, so cropped views need no copy.  The launch's
+geometry is decided here, by :func:`launch_plan` (a one-warp CTA a unit
+of a luma row pair over a segment of the width, and which loads and
+stores are vector ones), so that the CPU tests reach it.  A tensor on
 the CPU goes to the plain version, torch ops
-(:func:`ycbcr_to_rgb_plain`).  ``launches`` counts the kernel's launches;
-``plain_calls`` counts the plain version's calls, wherever they run (none
-on a card's display path).
+(:func:`ycbcr_to_rgb_plain`).  ``launches`` counts
+the kernel's launches; ``plain_calls`` counts the plain version's calls,
+wherever they run (none on a card's display path).
 
 The plain version writes the 3x3 product as separate elementwise
 multiplies and adds in one fixed order, every constant a float32 tensor
 on the planes' device, so that the CPU and a CUDA card compute the same
 bits: a matmul may run in TF32 on a card and sums in an order of its own,
 and a division by a host scalar is a multiply by its reciprocal on a card
-but a true division on the CPU.  The kernel does the same operations in
-the same order, each rounded once, and is bit-equal to it.
+but a true division on the CPU.  The kernel is bit-equal to it: the same
+operations in the same order, each rounded once, or exact shortcuts of
+them (``csrc/color.cu``'s note).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -48,6 +53,97 @@ counters.register("color_plain", __name__, "plain_calls")
 
 #: the kernel's alpha modes (``csrc/color.cu``: ``AlphaMode``)
 NO_ALPHA, OPAQUE, ALPHA_PLANE = 0, 1, 2
+
+#: threads a CTA, one warp (``csrc/color.cu``: ``kThreads``), 16 columns
+#: each
+THREADS = 32
+#: the widest segment of a unit, in pixels (``kMaxSeg``)
+MAX_SEG = 16 * THREADS
+#: plan flags (``kVec*``): 16-byte loads of a plane (8-byte for the
+#: chroma), 16-byte stores of the output rows
+VEC_Y, VEC_CB, VEC_CR, VEC_A, VEC_OUT = 1, 2, 4, 8, 16
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """What the colour kernel is told about a frame: its units, one CTA
+    each, and which loads and stores are 16-byte ones.  A unit is a luma
+    row pair (rows 2p and 2p + 1, the second absent past h) over one
+    segment of the width (columns s seg_w .., at most seg_w of them) with
+    the chroma row p under it; units are numbered pair-major, and CTA u
+    takes unit u.  In a unit, lane l takes columns 16 l .. 16 l + 15 of
+    the segment."""
+
+    h: int
+    w: int
+    channels: int
+    alpha_plane: bool
+    seg_w: int              # a multiple of 32, at most MAX_SEG
+    n_segs: int
+    units: int              # ceil(h / 2) * n_segs
+    vec: tuple              # y, cb, cr(, alpha): vector loads
+    out_vec: bool           # 16-byte stores of the output rows
+    threads: int = THREADS
+
+    @property
+    def flags(self) -> int:
+        f = sum(bit for bit, v in zip((VEC_Y, VEC_CB, VEC_CR, VEC_A),
+                                      self.vec) if v)
+        return f | (VEC_OUT if self.out_vec else 0)
+
+    @property
+    def grid(self) -> int:
+        """CTAs: one a unit."""
+        return self.units
+
+    def unit(self, u: int) -> tuple:
+        """(first luma row, rows, first column, columns) of unit u."""
+        p, s = divmod(u, self.n_segs)
+        x0 = s * self.seg_w
+        return 2 * p, min(2, self.h - 2 * p), x0, min(self.seg_w,
+                                                      self.w - x0)
+
+    def args(self) -> ctypes.Array:
+        """The kernel's ``plan`` argument: seg_w, flags."""
+        return (ctypes.c_int * 2)(self.seg_w, self.flags)
+
+
+def _aligned16(offset: int, stride: int) -> bool:
+    return (offset | stride) % 16 == 0
+
+
+def launch_plan(h: int, w: int, channels: int, strides, offsets,
+                out_offset: int = 0) -> LaunchPlan:
+    """The colour kernel's launch for an (h, w) frame of ``channels`` (3
+    or 4) output channels.  ``strides``: the row strides in bytes of Y,
+    Cb, Cr and, for a frame with an alpha plane, of that plane;
+    ``offsets``: the same planes' addresses (or their residues modulo
+    16); ``out_offset``: the output's.
+
+    The width is cut into the fewest equal segments of at most MAX_SEG
+    pixels, each a multiple of 32 wide (so each segment start keeps its
+    row's 16-byte alignment, luma and chroma): 480 at 1920 wide.
+    The grid is one CTA a unit.  A plane is read in 16-byte loads (the
+    chroma in 8-byte ones) where its base and row stride are multiples of
+    16, the output rows are written in 16-byte stores where its base and
+    its row length w * channels are; the kernel trusts these flags and
+    does not check them again."""
+    if h < 1 or w < 1 or channels not in (3, 4):
+        raise ValueError(f"no colour plan for {h}x{w}x{channels}")
+    if len(strides) != len(offsets) or len(strides) not in (3, 4):
+        raise ValueError("strides and offsets of 3 or 4 planes")
+    alpha_plane = len(strides) == 4
+    if alpha_plane and channels != 4:
+        raise ValueError("an alpha plane needs 4 channels")
+    n_segs = -(-w // MAX_SEG)
+    seg_w = -(-(-(-w // n_segs)) // 32) * 32
+    n_segs = -(-w // seg_w)
+    units = -(-h // 2) * n_segs
+    return LaunchPlan(
+        h=h, w=w, channels=channels, alpha_plane=alpha_plane, seg_w=seg_w,
+        n_segs=n_segs, units=units,
+        vec=tuple(_aligned16(o, s) for o, s in zip(offsets, strides)),
+        out_vec=_aligned16(out_offset, w * channels))
 
 
 @functools.cache
@@ -130,8 +226,9 @@ def _rows(p: torch.Tensor) -> torch.Tensor:
 
 def _launch(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
             a: torch.Tensor | None, mode: int) -> torch.Tensor:
-    """One launch of the colour kernel on the planes' CUDA device: a
-    contiguous (h, w, 3|4) uint8 tensor."""
+    """One launch of the colour kernel on the planes' CUDA device, as
+    :func:`launch_plan` lays it out: a contiguous (h, w, 3|4) uint8
+    tensor."""
     global launches
     device = y.device
     if device.type != "cuda":
@@ -141,6 +238,9 @@ def _launch(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
         [_rows(a)] if a is not None else [])
     out = torch.empty((h, w, 3 if mode == NO_ALPHA else 4),
                       dtype=torch.uint8, device=device)
+    index = device.index or 0
+    plan = launch_plan(h, w, out.shape[2], [p.stride(0) for p in planes],
+                       [p.data_ptr() for p in planes], out.data_ptr())
     ptrs = [p.data_ptr() for p in planes] + [None] * (4 - len(planes))
     strides = [p.stride(0) for p in planes] + [0] * (4 - len(planes))
 
@@ -150,8 +250,8 @@ def _launch(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor,
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = lib.jsvx_colour_frame(
         (ctypes.c_void_p * 4)(*ptrs), (ctypes.c_longlong * 4)(*strides),
-        h, w, mode, _COEFFS.ctypes.data, out.data_ptr(), device.index or 0,
-        stream)
+        h, w, mode, _COEFFS.ctypes.data, out.data_ptr(), plan.args(),
+        index, stream)
     if rc != 0:
         raise RuntimeError(f"colour kernel launch failed: cudaError_t {rc}")
     launches += 1

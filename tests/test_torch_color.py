@@ -16,8 +16,9 @@ of an odd display size against jsvx's.
 
 On the CPU ``ycbcr_to_rgb`` is its plain version; the colour kernel
 (``csrc/color.cu``, CUDA C++ for sm_90a) runs only on a card, in the
-``cuda``-marked test (0 differing bytes from the plain version) and in
-``chip_smoke.py``:
+``cuda``-marked test (0 differing bytes from the plain version and from
+the CPU) and in ``chip_smoke.py``; its launch plan and a numpy walk of it
+are tested on the CPU in ``tests/test_torch_color_plan.py``:
 ``python -m pytest tests/test_torch_color.py -m cuda --noconftest``.
 """
 
@@ -325,9 +326,12 @@ def test_player_rgb_equals_jsvx_player(yuva):
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_the_card():
-    """The colour kernel == its plain version on the card, 0 differing
-    bytes: every triple (three alpha modes), and crop views of a random
-    frame; one launch per call."""
+    """The colour kernel == its plain version on the card and == the CPU,
+    0 differing bytes: every triple (three alpha modes), crop views of a
+    random frame, widths 1-17 at odd heights, planes whose base or stride
+    is not a multiple of 16 (the byte path), a 4100-wide frame (nine
+    segments) and the 1920x1080 crop of a 1920x1088 frame; one launch per
+    call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda", 0)
@@ -340,11 +344,28 @@ def test_kernel_matches_plain_on_the_card():
         hc, wc = -(-h // 2), -(-w // 2)
         for m in (False, True, fa[:h, :w]):
             cases.append((fy[:h, :w], fcb[:hc, :wc], fcr[:hc, :wc], m))
+    for w in range(1, 18):
+        for h in (1, 3, 7):
+            ty, tcb, tcr, ta = (p.to(dev) for p in _frame(h, w, seed=w))
+            cases += [(ty, tcb, tcr, m) for m in (False, True, ta)]
+    # byte paths: bases off by 1 and 3, a 24-byte chroma stride
+    by, bcb, bcr, ba = (p.to(dev) for p in _frame(50, 70, seed=9))
+    cases.append((by[1:46, 3:64], bcb[1:24, 1:32], bcr[:23, 3:34],
+                  ba[1:46, 3:64]))
+    sy, scb, scr, sa = (p.to(dev) for p in _frame(64, 48, seed=4))
+    cases += [(sy, scb, scr, m) for m in (False, sa)]
+    wy, wcb, wcr, wa = (p.to(dev) for p in _frame(6, 4100, seed=6))
+    cases += [(wy, wcb, wcr, m) for m in (False, True, wa)]
+    hy, hcb, hcr, _ = (p.to(dev) for p in _frame(1088, 1920, seed=2))
+    cases.append((hy[:1080], hcb[:540], hcr[:540], False))
     for y_, cb_, cr_, m in cases:
         before = color.launches
         got = ycbcr_to_rgb(y_, cb_, cr_, m)
         torch.cuda.synchronize()
         assert color.launches == before + 1
         want = ycbcr_to_rgb_plain(y_, cb_, cr_, m)
-        assert got.is_contiguous() and torch.equal(got, want), (
-            tuple(y_.shape), m is True)
+        cpu = ycbcr_to_rgb(*(p.cpu() for p in (y_, cb_, cr_)),
+                           m if isinstance(m, bool) else m.cpu())
+        label = (tuple(y_.shape), m is True)
+        assert got.is_contiguous() and torch.equal(got, want), label
+        assert torch.equal(got.cpu(), cpu), label

@@ -236,7 +236,8 @@ def test_nvcc_command_targets_hopper_without_fma():
         "fused_decode.cu", "recon.cu", "mc.cu", "expand.cu", "color.cu")
     # the first designs, which only chip_smoke.py launches, build apart
     assert build.LIBRARIES["baselines"] == (
-        "fused_decode_baseline.cu", "recon_baseline.cu", "mc_baseline.cu")
+        "fused_decode_baseline.cu", "recon_baseline.cu", "mc_baseline.cu",
+        "color_baseline.cu")
     assert all(os.path.exists(os.path.join(build.CSRC, s))
                for sources in build.LIBRARIES.values() for s in sources)
     assert set(build.ENTRY_POINTS) == set(build.LIBRARIES)
