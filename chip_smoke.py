@@ -2335,10 +2335,10 @@ class StageWatch(StageTimer):
         self.gop0_end = None
 
     @contextlib.contextmanager
-    def stage(self, name: str):
+    def stage(self, name: str, **attrs):
         n0 = len(self.caught)
-        with super().stage(name):
-            yield
+        with super().stage(name, **attrs) as s:
+            yield s
         self.spans.append((name, n0, len(self.caught)))
         if name == "device_dispatch" and self.gop0_end is None:
             self.gop0_end = len(self.caught)

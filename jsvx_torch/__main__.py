@@ -22,10 +22,10 @@ float64 oracle, on the host) and writes it to OUT_DIR as
 ``frame_NNNNN.npz`` (coded-size ``y``, ``cb``, ``cr`` planes) or, with
 ``--rgb``, as ``frame_NNNNN.ppm``.  ``bench`` runs
 :func:`jsvx_torch.transcode` once, inside a ``torch.profiler`` trace with
-``--trace``.  ``play`` runs :class:`jsvx_torch.api.Player` on a wall
-clock.  ``warm`` builds the CUDA kernels' library and the C++ parser
-(the port's counterpart of jsvx's compile cache) and runs ``transcode``
-twice.  ``decode``, ``bench``, ``play`` and ``warm`` run on the CUDA card
+``--trace``, which also holds the program's spans.  ``play`` runs
+:class:`jsvx_torch.api.Player` on a wall clock.  ``warm`` builds the CUDA
+kernels' library and the C++ parser (the port's counterpart of jsvx's
+compile cache) and runs ``transcode`` twice.  ``decode``, ``bench``, ``play`` and ``warm`` run on the CUDA card
 and fail when there is none; ``--device cpu`` is the only way to the CPU.
 """
 
@@ -131,7 +131,8 @@ def cmd_encode(args) -> int:
 
 def cmd_bench(args) -> int:
     """One ``transcode`` of the clip (inside a ``torch.profiler`` trace
-    written to ``--trace DIR``): its metrics, end-to-end frames/s."""
+    written to ``--trace DIR``, the program's spans merged in): its
+    metrics, end-to-end frames/s."""
     from .pipeline.transcode import transcode
     from .runtime.profiler import device_trace
 
@@ -356,7 +357,9 @@ def main(argv=None) -> int:
     pb = sub.add_parser("bench")
     pb.add_argument("stream")
     pb.add_argument("--trace", default=None, metavar="DIR",
-                    help="write a torch.profiler Chrome trace to DIR")
+                    help="write a torch.profiler Chrome trace to "
+                    "DIR/trace.json: the host ops, the card's kernels and "
+                    "the program's spans (walk, parse, replay, ...)")
     pb.add_argument("--impl", default="fused",
                     choices=["fused", "two_kernel"])
     pb.add_argument("--device", default="cuda",

@@ -49,7 +49,7 @@ from ..kernels.decode import make_constants, quant_key
 from ..pipeline.gop import zero_refs
 from ..pipeline.packed_parse import BufferPool
 from ..pipeline.stream import decode_group
-from ..runtime.profiler import Metrics
+from ..runtime.profiler import Metrics, span
 from .config import PlayerConfig
 from .events import EventDispatcher
 
@@ -79,6 +79,9 @@ class Decoder(EventDispatcher):
     ``metrics`` holds the torch backend's stages: ``parse`` (the GOP
     batch's picture parse), ``pack``, ``h2d`` and ``device_decode``, and
     on a card the counters ``gop_program.captures`` and ``.replays``.
+    While a profiler records, the span log also gets, inside ``parse``,
+    each start-code ``scan``, each ``buffer_copy`` of the buffered stream
+    (here and in :class:`RangeBuffer`) and each ``picture_parse``.
     """
 
     def __init__(self, config: PlayerConfig | None = None,
@@ -101,6 +104,7 @@ class Decoder(EventDispatcher):
         self._consts = None
         self._index_cache: tuple[int, int, StartCodeIndex] | None = None
         self._pending: list[DecodedFrame] = []   # GOP-batch output queue
+        self._pictures = 0                # pictures parsed, for the spans
 
     # ------------------------------------------------------------------
     # Ingest
@@ -137,9 +141,22 @@ class Decoder(EventDispatcher):
         data, base = view
         key = (base, len(data))
         if self._index_cache is None or self._index_cache[:2] != key:
-            idx = StartCodeIndex(find_start_codes(data, base))
+            with span("scan", bytes=len(data)):
+                idx = StartCodeIndex(find_start_codes(data, base))
             self._index_cache = (base, len(data), idx)
         return data, base, self._index_cache[2]
+
+    def _reader(self, data: np.ndarray, base: int, off: int) -> BitReader:
+        """A reader at the start code at ``off``, over a copy of ``data``
+        (the buffered view from ``base``)."""
+        with span("buffer_copy", bytes=len(data)):
+            buf = data.tobytes()
+        return BitReader(buf, base=base, pos_bits=(off + 4) << 3)
+
+    def _parse_picture(self, r: BitReader, index, eos):
+        with span("picture_parse", picture=self._pictures):
+            self._pictures += 1
+            return self.parser.parse_picture(r, index, eos)
 
     def _known_end(self, base: int, data_len: int) -> int | None:
         """Absolute end-of-stream byte when this view reaches it."""
@@ -203,8 +220,7 @@ class Decoder(EventDispatcher):
                     self.emit("stalled", base + len(data))
                 return None
             off, code = nxt
-            r = BitReader(data.tobytes(), base=base,
-                          pos_bits=(off + 4) << 3)
+            r = self._reader(data, base, off)
             try:
                 if code == T.START_SEQUENCE:
                     if not self.buffer.has(18, off):   # header size gate
@@ -228,7 +244,7 @@ class Decoder(EventDispatcher):
                     if not self.buffer.has(gate, off):
                         return None
                     eos = self._known_end(base, len(data))
-                    ft = self.parser.parse_picture(r, index, eos)
+                    ft = self._parse_picture(r, index, eos)
                     self.buffer.advance_to(r.byte_pos)
                     if ft is None:
                         continue           # skipped picture type
@@ -280,7 +296,7 @@ class Decoder(EventDispatcher):
         Any surprise stall ends the parse early (the pictures parsed so far
         still decode), and with none parsed the caller falls back to the
         picture-at-a-time loop."""
-        with self.metrics.timers.stage("parse"):
+        with self.metrics.timers.stage("parse", start=span[0]):
             fts = self._parse_span(span[1])
         if not fts:
             return None
@@ -308,8 +324,7 @@ class Decoder(EventDispatcher):
                 self.buffer.advance_to(min(end, base + len(data)))
                 break
             off, code = nxt
-            r = BitReader(data.tobytes(), base=base,
-                          pos_bits=(off + 4) << 3)
+            r = self._reader(data, base, off)
             try:
                 if code == T.START_SEQUENCE:
                     self._on_sequence(self.parser.parse_sequence_header(r))
@@ -318,7 +333,7 @@ class Decoder(EventDispatcher):
                     self.current_time_ms = self.parser.parse_gop_header(r)
                     self.buffer.advance_to(r.byte_pos)
                 elif code == T.START_PICTURE:
-                    ft = self.parser.parse_picture(
+                    ft = self._parse_picture(
                         r, index, self._known_end(base, len(data)) or end)
                     self.buffer.advance_to(min(r.byte_pos, end))
                     if ft is not None:
@@ -429,7 +444,7 @@ class Decoder(EventDispatcher):
             self.emit("stalled", base + len(data))
             return False
         off, _ = nxt
-        r = BitReader(data.tobytes(), base=base, pos_bits=(off + 4) << 3)
+        r = self._reader(data, base, off)
         try:
             if want_code == T.START_SEQUENCE:
                 self.parser.parse_sequence_header(r)

@@ -50,6 +50,7 @@ import torch
 
 from ..coding import tables as T
 from ..kernels.color import ycbcr_to_rgb
+from ..runtime.profiler import span
 from ..runtime.source import ByteSource, source_for
 from .config import PlayerConfig
 from .decoder import DecodedFrame, Decoder, check_backend
@@ -588,7 +589,9 @@ class Player(EventDispatcher):
                 return                     # still unresolvable: no decode
         self._filling = True
         try:
-            self._fill_queue_inner(d)
+            with span("fill", before=len(self._frames)) as s:
+                self._fill_queue_inner(d)
+                s.set(after=len(self._frames))
         finally:
             self._filling = False
 
@@ -810,8 +813,9 @@ class Player(EventDispatcher):
     # Render clock (displayFrame analog)
 
     def tick(self, now_s: float) -> None:
-        """Advance playback to wall/virtual time ``now_s`` (seconds)."""
-        with self._lock:
+        """Advance playback to wall/virtual time ``now_s`` (seconds); a
+        ``tick`` span of the span log while a profiler records."""
+        with self._lock, span("tick", now_s=now_s, queued=len(self._frames)):
             if self._paused or self._seeking:
                 return
             now_ms = now_s * 1000.0
@@ -859,10 +863,13 @@ class Player(EventDispatcher):
         frame, t_ms = self._frames.pop(0)
         self._current_time_ms = t_ms
         if self._frame_sink is not None:
+            shown = self.metrics.counters.get("frames_displayed", 0)
+            out = frame
             if self.config.emit_rgb:
-                self._frame_sink(self._to_rgb(frame), t_ms / 1000.0)
-            else:
-                self._frame_sink(frame, t_ms / 1000.0)
+                with span("to_rgb", frame=shown):
+                    out = self._to_rgb(frame)
+            with span("sink", frame=shown):
+                self._frame_sink(out, t_ms / 1000.0)
         self.emit("frameout", frame, t_ms / 1000.0)
         self.emit("timeupdate")
         self.metrics.count("frames_displayed")

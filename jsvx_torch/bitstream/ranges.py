@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..runtime.profiler import span
 from ..utils.events import EventDispatcher
 
 
@@ -116,7 +117,9 @@ class RangeBuffer(EventDispatcher):
         seg = self._seg_at(pos)
         if seg is None:
             return None
-        return np.frombuffer(bytes(seg.data), dtype=np.uint8), seg.start
+        with span("buffer_copy", bytes=len(seg.data)):
+            data = bytes(seg.data)
+        return np.frombuffer(data, dtype=np.uint8), seg.start
 
     def byte_ranges(self) -> list[tuple[int, int]]:
         """Merged (start, end_inclusive) list — the ``buffered`` surface."""
@@ -153,7 +156,8 @@ class RangeBuffer(EventDispatcher):
             if s.start < keep_from <= s.end:
                 drop = keep_from - s.start
                 self.emit("bufferremoved", s.start, keep_from - 1)
-                s.data = s.data[drop:]
+                with span("buffer_copy", bytes=len(s.data) - drop):
+                    s.data = s.data[drop:]
                 s.start = keep_from
             out.append(s)
         self._segs = out

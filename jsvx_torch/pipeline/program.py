@@ -48,6 +48,14 @@ holds them.  A dense picture's layout depends only on the picture size,
 the plane count and whether the parser emitted ``mult``/``flags``, so
 every picture of a stream decodes through one one-picture program.
 
+While a torch profiler records, :meth:`GopProgram.run` logs a span
+``capture`` (a key's first sight: its eager run and its capture), or
+``replay`` (the host's ``graph.replay()`` call) and ``copy_out`` (the
+output stacks' copies), each with the key's id (``GopProgram.key_id``,
+from the key's hash); the cache logs an event ``checkout`` (a hit, or a
+build) and ``evict`` (a program closed on check-in) to the span log of
+:mod:`jsvx_torch.runtime.profiler`.
+
 The kernels' launch counters (:mod:`jsvx_torch.kernels.counters`) are
 Python integers, which a replay does not move.  A program records, at its
 capture, how far the capture moved each counter (then takes that back:
@@ -84,6 +92,7 @@ import torch
 
 from ..kernels import counters
 from ..kernels.decode import DecodeConstants
+from ..runtime.profiler import event, span
 from .gop import decode_gop_batch, decode_gop_wire, zero_refs
 from .wire import unflatten_wire
 
@@ -156,6 +165,7 @@ class GopProgram:
 
     def __init__(self, key: ProgramKey, consts: DecodeConstants):
         self.key = key
+        self.key_id = hash(key) & 0xffffffff    # its id in the span log
         self.consts = consts
         self.device = torch.device(key.device)
         self.wire = torch.empty(key.spec[1], dtype=torch.uint8,
@@ -230,7 +240,7 @@ class GopProgram:
             if copied is not None:
                 torch.cuda.current_stream(self.device).wait_event(copied)
             if self.graph is None:
-                with _LOCK:
+                with span("capture", key=self.key_id), _LOCK:
                     outs = self.body()
                     self._capture()
                 metrics.count("gop_program.captures")
@@ -238,10 +248,12 @@ class GopProgram:
                               metrics.gauges.get("gop_program.capture_s",
                                                  0.0) + self.capture_s)
             else:
-                self.graph.replay()
+                with span("replay", key=self.key_id):
+                    self.graph.replay()
                 with _LOCK:
                     counters.add(self.launches)
-                outs = tuple(o.clone() for o in self.outs)
+                with span("copy_out", key=self.key_id):
+                    outs = tuple(o.clone() for o in self.outs)
                 metrics.count("gop_program.replays")
         self.consumed = _record(self.device)
         self.loaded = False
@@ -292,7 +304,8 @@ class ProgramCache:
 
     def checkout(self, key, build):
         """An idle program of ``key``, else ``build()``'s; the caller has
-        it until :meth:`checkin`."""
+        it until :meth:`checkin`.  Each is an event ``checkout`` of the
+        span log (the key's id, a hit or a build)."""
         with self._lock:
             idle = self._idle.get(key)
             if idle:
@@ -300,8 +313,10 @@ class ProgramCache:
                 if not idle:
                     del self._idle[key]
                 self._busy.append(prog)
+                event("checkout", key=prog.key_id, hit=True)
                 return prog
         prog = build()
+        event("checkout", key=prog.key_id, hit=False)
         with self._lock:
             self._busy.append(prog)
         return prog
@@ -309,7 +324,9 @@ class ProgramCache:
     def checkin(self, prog) -> None:
         """Give ``prog`` back.  One that still holds a GOP it never ran
         (its call failed) is closed; then idle programs are closed, least
-        recently used first, while more than ``capacity`` are held."""
+        recently used first, while more than ``capacity`` are held: each
+        closed one is an event ``evict`` of the span log (the key's id,
+        the bytes it held)."""
         closing = []
         with self._lock:
             self._busy.remove(prog)
@@ -325,6 +342,7 @@ class ProgramCache:
                 if not progs:
                     del self._idle[key]
         for p in closing:
+            event("evict", key=p.key_id, held_bytes=p.held_bytes)
             p.close()
 
     def clear(self) -> None:

@@ -86,17 +86,17 @@ def _decode_unit(fts: list, refs: tuple, consts, device: torch.device,
                  programs: ProgramSet) -> tuple:
     """One dense wire of ``fts`` through its program, from ``refs`` ->
     the (Y, Cb, Cr[, A]) stacks."""
-    with metrics.timers.stage("pack"):
+    with metrics.timers.stage("pack", pictures=len(fts)):
         stacked = stack_device_frames([frame_to_device(ft) for ft in fts])
         spec, buf = pack(stacked, pool)
     h, w = stacked["y"]["levels"].shape[-2:]
     key = program_key(spec, h // 16, w // 16, len(frame_comp_keys(stacked)),
                       impl, quirk, consts, device, refs_in=True)
     prog = programs.get(key, lambda: GopProgram(key, consts))
-    with metrics.timers.stage("h2d"):
+    with metrics.timers.stage("h2d", pictures=len(fts)):
         prog.fill(pool.host_tensor(buf), refs)
     pool.release(buf)
-    with metrics.timers.stage("device_decode"):
+    with metrics.timers.stage("device_decode", pictures=len(fts)):
         outs, _ = prog.run(None, metrics)
         synchronize(device)
     return outs

@@ -55,6 +55,14 @@ Stages in ``Metrics``:
 * ``sink``: the caller's sink;
 * ``expand_probe_compile`` (``probe_expand=True``): the probe's first run.
 
+While a torch profiler records, each stage is also a span of the span
+log (:mod:`jsvx_torch.runtime.profiler`), with its GOP's index, and the
+log gets, besides: ``transcode`` around the call (its id, route and GOP
+count), ``walk`` (the header walk, inside the call's first ``parse``),
+``call_setup`` (the constants, the pool, the copier) and ``call_close``
+(the programs' check-in), and the programs' own spans and events
+(:mod:`jsvx_torch.pipeline.program`).
+
 Gauges: ``width``, ``height``, ``wire_bytes`` (every wire copied, dense
 fallbacks included) and, with ``probe_expand``,
 ``expand_probe_s_per_gop``; on a card, the counters
@@ -65,6 +73,7 @@ inside ``device_dispatch``).
 
 from __future__ import annotations
 
+import itertools
 import time
 from dataclasses import dataclass
 
@@ -74,12 +83,16 @@ import torch
 from ..kernels.decode import constants_per_seq
 from ..kernels.expand import expand_compact_gop
 from ..runtime.multihost import GopManifest
-from ..runtime.profiler import Metrics
+from ..runtime.profiler import Metrics, recording, span
 from .gop import frame_decoder
 from .packed_parse import (BufferPool, parse_gop_compact, parse_gop_packed,
                            walk_stream_seqs)
 from .program import CACHE, GopProgram, ProgramSet, program_key
 from .wire import flatten_wire, unflatten_wire, wire_spec
+
+
+#: each call's id in the span log
+_CALLS = itertools.count()
 
 
 @dataclass
@@ -193,11 +206,17 @@ def transcode(data: bytes, sink=None, *, device="cuda",
               process_id=process_id, process_count=process_count,
               n_parse_threads=n_parse_threads,
               metrics=metrics or Metrics())
-    if quirk_oddify_zeros:
-        # the compact wire cannot express the oddify-zeros quirk (it
-        # oddifies positions the compact wire elides by design)
-        return _transcode_packed(data, sink, **kw)
-    return _transcode_compact(data, sink, probe_expand=probe_expand, **kw)
+    # the compact wire cannot express the oddify-zeros quirk (it oddifies
+    # positions the compact wire elides by design)
+    route = "dense" if quirk_oddify_zeros else "compact"
+    with span("transcode", call=next(_CALLS), route=route) as s:
+        if quirk_oddify_zeros:
+            res = _transcode_packed(data, sink, **kw)
+        else:
+            res = _transcode_compact(data, sink, probe_expand=probe_expand,
+                                     **kw)
+        s.set(gops=res.n_gops)
+    return res
 
 
 class _Run:
@@ -214,25 +233,29 @@ class _Run:
         self.sink, self.device, self.impl = sink, device, impl
         self.manifest, self.metrics, self.quirk = manifest, metrics, quirk
         self.n_threads = n_parse_threads
-        with metrics.timers.stage("parse"):
+        with metrics.timers.stage("parse"), span("walk") as walk:
             self.meta, self.seqs, self.groups = walk_stream_seqs(data)
-        # each GOP decodes with the matrices of its own sequence header:
-        # one constants set per distinct pair of matrices
-        self.consts = constants_per_seq(self.seqs, device)
-        if manifest is None:
-            self.todo = list(range(len(self.groups)))
-        else:
-            self.todo = [s.index for s in
-                         manifest.pending(process_id, process_count)
-                         if s.index < len(self.groups)]
-        if device.type == "cuda":
-            # each basis's one copy from the card, before GOP 0: a key
-            # first seen later runs its eager loop without a sync
-            for gi in self.todo:
-                self.consts[gi].c_basis_host
-        self.pool = BufferPool(pin=device.type == "cuda")
-        self.copier = WireCopier(device)
-        self.programs = ProgramSet(CACHE)
+            if recording():
+                walk.set(gops=len(self.groups),
+                         pictures=sum(map(len, self.groups)))
+        with span("call_setup"):
+            # each GOP decodes with the matrices of its own sequence
+            # header: one constants set per distinct pair of matrices
+            self.consts = constants_per_seq(self.seqs, device)
+            if manifest is None:
+                self.todo = list(range(len(self.groups)))
+            else:
+                self.todo = [s.index for s in
+                             manifest.pending(process_id, process_count)
+                             if s.index < len(self.groups)]
+            if device.type == "cuda":
+                # each basis's one copy from the card, before GOP 0: a key
+                # first seen later runs its eager loop without a sync
+                for gi in self.todo:
+                    self.consts[gi].c_basis_host
+            self.pool = BufferPool(pin=device.type == "cuda")
+            self.copier = WireCopier(device)
+            self.programs = ProgramSet(CACHE)
         self.n_frames = 0
         self.wire_total = 0
 
@@ -266,13 +289,13 @@ class _Run:
     def dispatch(self, up: Upload) -> tuple:
         """Enqueue GOP ``up``'s decode; returns (its output planes, the
         event recorded after its device work; None on the CPU)."""
-        with self.metrics.timers.stage("device_dispatch"):
+        with self.metrics.timers.stage("device_dispatch", gop=up.index):
             return up.program.run(up.copied, self.metrics)
 
     def deliver(self, up: Upload, outs: tuple) -> None:
         """Hand a complete GOP to the sink; count and journal it."""
         if self.sink is not None:
-            with self.metrics.timers.stage("sink"):
+            with self.metrics.timers.stage("sink", gop=up.index):
                 self.sink(up.index, outs)
         self.n_frames += up.n_frames
         self.metrics.count("frames", up.n_frames)
@@ -282,7 +305,8 @@ class _Run:
 
     def close(self) -> None:
         """Give the call's GOP programs back to the cache."""
-        self.programs.close()
+        with span("call_close"):
+            self.programs.close()
 
     def result(self) -> TranscodeResult:
         m = self.metrics
@@ -313,7 +337,7 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
     buckets: dict = {}                   # sticky per-component buckets
 
     def parse_one(gi: int) -> Upload:
-        with metrics.timers.stage("parse"):
+        with metrics.timers.stage("parse", gop=gi, wire="compact") as s:
             g = parse_gop_compact(run.arr, run.groups[gi], run.seqs[gi],
                                   run.meta, run.pool, buckets,
                                   n_threads=run.n_threads, index=gi)
@@ -322,6 +346,7 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
                                   compact=True)
             for buf in g.pooled:
                 run.pool.release(buf)
+            s.set(wire="dense")
             g = run.parse_dense(gi)
             return run.upload(g.stacked, gi, len(g.fts), g.pooled,
                               compact=False)
@@ -330,7 +355,7 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
         """Complete and deliver a dispatched GOP (one GOP behind the
         dispatch, so its delivery overlaps the next GOP's device work)."""
         up, outs, decoded = pending
-        with metrics.timers.stage("device_wait"):
+        with metrics.timers.stage("device_wait", gop=up.index):
             wait(decoded)
         run.release(up)                  # dense fallback: freed here
         run.deliver(up, outs)
@@ -347,7 +372,7 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
             # tail; once it is done the pooled host buffers are free for
             # the next parse (released one GOP later, every parse would
             # allocate fresh multi-MB buffers)
-            with metrics.timers.stage("wire_wait"):
+            with metrics.timers.stage("wire_wait", gop=up.index):
                 wait(up.copied)
             run.release(up)
         outs, decoded = run.dispatch(up)
@@ -401,7 +426,7 @@ def _packed_loop(run: _Run) -> None:
     metrics = run.metrics
 
     def parse_one(gi: int) -> Upload:
-        with metrics.timers.stage("parse"):
+        with metrics.timers.stage("parse", gop=gi, wire="dense"):
             g = run.parse_dense(gi)
             return run.upload(g.stacked, gi, len(g.fts), g.pooled,
                               compact=False)
@@ -413,7 +438,7 @@ def _packed_loop(run: _Run) -> None:
         outs, decoded = run.dispatch(up)
         # overlap: the host parses the next GOP while the device decodes
         nxt = parse_one(todo[i + 1]) if i + 1 < len(todo) else None
-        with metrics.timers.stage("device_wait"):
+        with metrics.timers.stage("device_wait", gop=up.index):
             wait(decoded)
         run.release(up)
         run.deliver(up, outs)

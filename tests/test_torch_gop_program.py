@@ -126,6 +126,7 @@ class _Fake:
 
     def __init__(self, key, name):
         self.key, self.name = key, name
+        self.key_id = hash(key) & 0xffffffff
         self.loaded = False
         self.closed = False
         self.held_bytes = 10
