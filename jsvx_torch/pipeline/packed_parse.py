@@ -26,7 +26,8 @@ from ..bitstream.native import get_native_parser
 from ..bitstream.parser import FrameTensors, StreamParser
 from ..coding import tables as T
 from ..kernels.decode import COMP_KEYS, comp_is_chroma
-from .parallel_parse import _parse_picture_header, _picture_end
+from .parallel_parse import (_parse_picture_header, _picture_end,
+                             _picture_stops)
 
 
 class BufferPool:
@@ -85,8 +86,8 @@ class BufferPool:
 
 def walk_stream(data: bytes):
     """Serial header walk: (meta, seq, groups) where ``groups[g]`` is the
-    list of (picture-header FrameTensors stub, start_bit) of GOP g and
-    ``seq`` the stream's last sequence header."""
+    list of (PictureHeader, start_bit) of GOP g and ``seq`` the stream's
+    last sequence header."""
     meta, seq, groups, _ = _walk(data)
     return meta, seq, groups
 
@@ -102,11 +103,14 @@ def walk_stream_seqs(data: bytes):
 
 def _walk(data: bytes):
     """(meta, the last sequence header, groups, the sequence header
-    current at each group's first picture)."""
+    current at each group's first picture).  It reads headers only: a
+    picture is its header's fields, and the walk goes from its header
+    straight to the next code that can end it."""
     data = bytes(data)
     r = BitReader(data)
     meta = parse_container_header(r)
     index = StartCodeIndex.scan(data)
+    stops = _picture_stops(index)
     parser = StreamParser(use_native=False)
     parser.yuva = meta.yuva
     groups: list[list] = []
@@ -137,7 +141,7 @@ def _walk(data: bytes):
             if not groups[-1]:
                 seqs[-1] = parser.seq
             groups[-1].append((hdr, start_bit))
-            pos = _picture_end(index, rr.byte_pos, len(data))
+            pos = _picture_end(stops, rr.byte_pos, len(data))
         else:
             pos = off + 4
     kept = [(g, s) for g, s in zip(groups, seqs) if g]

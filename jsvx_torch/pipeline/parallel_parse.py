@@ -37,6 +37,22 @@ class ParsedStream:
     gop_starts: list        # indices into frames where GOPs begin
 
 
+@dataclass(slots=True)
+class PictureHeader:
+    """The fields of one picture header that the decode reads: what the
+    header walk records of each picture, with no planes."""
+
+    picture_type: int            # PICTURE_TYPE_I or _P
+    temporal_ref: int
+    full_pel: bool
+    f_code: int                  # forward_f_code (0 for I pictures)
+    gop_time_ms: float           # GOP timecode resync carried by this frame
+
+    @property
+    def is_intra_picture(self) -> bool:
+        return self.picture_type == T.PICTURE_TYPE_I
+
+
 def parse_stream_parallel(data: bytes, n_threads: int | None = None,
                           parser: StreamParser | None = None
                           ) -> ParsedStream:
@@ -47,6 +63,7 @@ def parse_stream_parallel(data: bytes, n_threads: int | None = None,
     r = BitReader(data)
     meta = parse_container_header(r)
     index = StartCodeIndex.scan(data)
+    stops = _picture_stops(index)
     parser = parser or StreamParser()
     parser.yuva = meta.yuva
     native = get_native_parser()
@@ -70,14 +87,17 @@ def parse_stream_parallel(data: bytes, n_threads: int | None = None,
             gop_starts.append(len(frames))
             pos = rr.byte_pos
         elif code == T.START_PICTURE:
-            ft, start_bit = _parse_picture_header(parser, rr)
-            if ft is None:
+            hdr, start_bit = _parse_picture_header(parser, rr)
+            if hdr is None:
                 pos = rr.byte_pos
                 continue
+            ft = alloc_frame_tensors(
+                parser.seq, hdr.picture_type, hdr.temporal_ref,
+                hdr.full_pel, hdr.f_code, hdr.gop_time_ms, yuva=parser.yuva)
             frames.append(ft)
             jobs.append((ft, start_bit, parser.seq))
             # jump to the next non-slice code to keep the walk O(codes)
-            pos = _picture_end(index, rr.byte_pos, len(data))
+            pos = _picture_end(stops, rr.byte_pos, len(data))
         else:
             pos = off + 4
 
@@ -95,8 +115,9 @@ def parse_stream_parallel(data: bytes, n_threads: int | None = None,
 
 
 def _parse_picture_header(parser: StreamParser, r: BitReader):
-    """Picture-header fields + FrameTensors allocation (serial part)."""
-    seq = parser.seq
+    """Picture-header fields (serial part): (PictureHeader, start bit of
+    the slices), or (None, 0) for a picture the decode skips (B, D, or P
+    with ``f_code`` 0)."""
     temporal_ref = r.get_bits(10)
     ptype = r.get_bits(3)
     r.advance(16)
@@ -109,22 +130,24 @@ def _parse_picture_header(parser: StreamParser, r: BitReader):
         f_code = r.get_bits(3)
         if f_code == 0:
             return None, 0
-    ft = alloc_frame_tensors(seq, ptype, temporal_ref, full_pel, f_code,
-                             parser._pending_gop_time
-                             if parser._have_pending_gop else 0.0,
-                             yuva=parser.yuva)
+    hdr = PictureHeader(ptype, temporal_ref, full_pel, f_code,
+                        parser._pending_gop_time
+                        if parser._have_pending_gop else 0.0)
     parser._have_pending_gop = False
-    return ft, r.bit_pos
+    return hdr, r.bit_pos
 
 
-def _picture_end(index: StartCodeIndex, from_byte: int, eos: int) -> int:
-    entries = index.entries
-    i = int(np.searchsorted(entries[:, 0], from_byte))
-    skip = (T.START_EXTENSION, T.START_USER_DATA)
-    while i < len(entries):
-        code = int(entries[i, 1])
-        if not (T.START_SLICE_FIRST <= code <= T.START_SLICE_LAST
-                or code in skip):
-            return int(entries[i, 0])
-        i += 1
-    return eos
+def _picture_stops(index: StartCodeIndex) -> np.ndarray:
+    """Offsets of the index's codes that can end a picture: all but
+    slice, extension and user-data codes."""
+    codes = index.entries[:, 1]
+    inner = (((codes >= T.START_SLICE_FIRST) & (codes <= T.START_SLICE_LAST))
+             | (codes == T.START_EXTENSION) | (codes == T.START_USER_DATA))
+    return index.entries[~inner, 0]
+
+
+def _picture_end(stops: np.ndarray, from_byte: int, eos: int) -> int:
+    """The first of ``stops`` (:func:`_picture_stops`) at or after
+    ``from_byte``, else ``eos``."""
+    i = int(np.searchsorted(stops, from_byte))
+    return int(stops[i]) if i < len(stops) else eos

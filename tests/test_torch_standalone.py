@@ -438,7 +438,8 @@ def test_fixture_pattern_equals_bench():
         os.path.join(REPO, "build", "jsvx_torch") + os.sep)
 
 
-@pytest.mark.parametrize("name", ["small", "yuva", "full_pel_custom_q"])
+@pytest.mark.parametrize("name", ["tiny", "tiny_quirk_stream", "small",
+                                  "yuva", "full_pel_custom_q"])
 def test_parse_stream_parallel_equal(streams, name):
     """The picture-parallel parse: every field of every picture equal to
     jsvx's parallel parse and to the port's serial ``parse_all``, the GOP
