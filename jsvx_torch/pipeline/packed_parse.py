@@ -9,6 +9,9 @@ bucket-padded array per component.
 :func:`parse_gop_packed` parses a GOP into dense stacked planes instead:
 the wire of the oddify-zeros quirk and of GOPs the compact wire cannot
 express; :func:`parse_stream_packed` does so for every GOP of a stream.
+A GOP's pictures parse on the process's parse pool (:mod:`.parse_pool`):
+:func:`start_gop_compact` and :func:`start_gop_packed` queue them, so a
+caller can queue the next GOP before it waits on this one.
 The port's kernels read per-block motion vectors directly, so no
 distinct-vector table is built (the JAX package's ``mv_capacity=0``).
 """
@@ -28,6 +31,7 @@ from ..coding import tables as T
 from ..kernels.decode import COMP_KEYS, comp_is_chroma
 from .parallel_parse import (_parse_picture_header, _picture_end,
                              _picture_stops)
+from .parse_pool import Batch, Lane, picture_bytes
 
 
 class BufferPool:
@@ -171,16 +175,23 @@ def coef_bucket(n: int) -> int:
     return b
 
 
-def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
-                      pool: BufferPool, buckets: dict,
-                      n_threads: int | None = None,
-                      index: int = 0) -> CompactGop:
-    """Parse one GOP (GOP ``index`` of its stream) into the compact wire
-    format.
+@dataclass
+class CompactParse:
+    """A GOP's compact parse queued on the parse pool
+    (:func:`start_gop_compact`): the arrays its tasks fill;
+    :func:`parse_gop_compact` waits for it and packs."""
 
-    ``buckets`` maps component key -> sticky entry-capacity bucket; it is
-    grown in place so successive GOPs keep stable shapes.
-    """
+    batch: Batch
+    counts: list
+    mb: dict
+    scratch: list
+    ns: list
+    dirty: list
+
+
+def start_gop_compact(arr: np.ndarray, group: list, seq, meta,
+                      pool: BufferPool, lane: Lane) -> CompactParse:
+    """Allocate a GOP's compact parse and queue its pictures on ``lane``."""
     native = get_native_parser()
     n_comps = meta.n_components
     mb_h, mb_w = seq.mb_height, seq.mb_width
@@ -211,14 +222,34 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
             mb_quant[i], mb_intra[i], mb_mv[i], mb_rep_add[i],
             n_threads=1)
 
-    if n_threads == 1 or n == 1:
-        for i in range(n):
-            run(i)
-    else:
-        from concurrent.futures import ThreadPoolExecutor
+    batch = lane.submit(run, picture_bytes([sb for _, sb in group]))
+    return CompactParse(batch=batch, counts=counts,
+                        mb=dict(q=mb_quant, intra=mb_intra,
+                                rep_add=mb_rep_add, mv=mb_mv),
+                        scratch=scratch, ns=ns, dirty=dirty)
 
-        with ThreadPoolExecutor(max_workers=n_threads) as tp:
-            list(tp.map(run, range(n)))
+
+def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
+                      pool: BufferPool, buckets: dict,
+                      n_threads: int | None = None,
+                      index: int = 0,
+                      started: CompactParse | None = None) -> CompactGop:
+    """Parse one GOP (GOP ``index`` of its stream) into the compact wire
+    format.
+
+    ``buckets`` maps component key -> sticky entry-capacity bucket; it is
+    grown in place so successive GOPs keep stable shapes.  ``started`` is
+    the GOP's parse already queued by :func:`start_gop_compact`; without
+    it the parse is queued here, on a lane of ``n_threads``
+    (:class:`~jsvx_torch.pipeline.parse_pool.Lane`).
+    """
+    if started is None:
+        started = start_gop_compact(arr, group, seq, meta, pool,
+                                    Lane(n_threads))
+    started.batch.wait()
+    n_comps = meta.n_components
+    n = len(group)
+    counts, scratch, ns = started.counts, started.scratch, started.ns
 
     hdrs = [hdr for hdr, _ in group]
     out = dict(
@@ -226,8 +257,7 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
                       np.int32),
         f_code=np.array([h.f_code for h in hdrs], np.int32),
     )
-    out["mb"] = dict(q=mb_quant, intra=mb_intra, rep_add=mb_rep_add,
-                     mv=mb_mv)
+    out["mb"] = started.mb
 
     coef = {}
     pooled = []
@@ -251,7 +281,7 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
         for s in row:
             pool.release(s)
     return CompactGop(stacked=out, hdrs=hdrs, index=index, pooled=pooled,
-                      dirty=any(dirty))
+                      dirty=any(started.dirty))
 
 
 @dataclass
@@ -275,12 +305,23 @@ def _mb_to_blocks(a: np.ndarray, comp: int) -> np.ndarray:
                      2, axis=-1 if a.ndim == 2 else 2)
 
 
-def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
-                     pool: BufferPool | None = None,
-                     n_threads: int | None = None,
-                     slice_threads: int = 1, index: int = 0) -> PackedGop:
-    """Parse one GOP's pictures (GOP ``index`` of its stream) into
-    freshly-acquired stacked arrays.
+@dataclass
+class PackedParse:
+    """A GOP's dense parse queued on the parse pool
+    (:func:`start_gop_packed`): the arrays its tasks fill;
+    :func:`parse_gop_packed` waits for it and stacks them."""
+
+    batch: Batch
+    levels: list
+    lnzs: list
+    mb: tuple                    # (quant, intra, mv, rep_add)
+    fts: list
+
+
+def start_gop_packed(arr: np.ndarray, group: list, seq, meta,
+                     pool: BufferPool, lane: Lane,
+                     slice_threads: int = 1) -> PackedParse:
+    """Allocate a GOP's dense parse and queue its pictures on ``lane``.
 
     Small per-MB arrays are zeroed; coefficient planes are NOT cleared:
     the dequantiser masks every position at or after a block's ``lnz``,
@@ -288,7 +329,6 @@ def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
     only readers of the DC override) are always coded.
     """
     native = get_native_parser()
-    pool = pool or BufferPool()
     n_comps = meta.n_components
     mb_h, mb_w = seq.mb_height, seq.mb_width
     ch, cw = seq.coded_height, seq.coded_width
@@ -322,14 +362,31 @@ def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
         native.parse_picture_slices(arr, group[i][1], fts[i], mb_w, mb_h,
                                     None, n_threads=slice_threads)
 
-    if n_threads == 1 or n == 1:
-        for i in range(n):
-            run(i)
-    else:
-        from concurrent.futures import ThreadPoolExecutor
+    batch = lane.submit(run, picture_bytes([sb for _, sb in group]))
+    return PackedParse(batch=batch, levels=levels, lnzs=lnzs,
+                       mb=(mb_quant, mb_intra, mb_mv, mb_rep_add), fts=fts)
 
-        with ThreadPoolExecutor(max_workers=n_threads) as tp:
-            list(tp.map(run, range(n)))
+
+def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
+                     pool: BufferPool | None = None,
+                     n_threads: int | None = None,
+                     slice_threads: int = 1, index: int = 0,
+                     started: PackedParse | None = None) -> PackedGop:
+    """Parse one GOP's pictures (GOP ``index`` of its stream) into
+    freshly-acquired stacked arrays.
+
+    ``started`` is the GOP's parse already queued by
+    :func:`start_gop_packed`; without it the parse is queued here, on a
+    lane of ``n_threads`` (:class:`~jsvx_torch.pipeline.parse_pool.Lane`).
+    """
+    if started is None:
+        started = start_gop_packed(arr, group, seq, meta,
+                                   pool or BufferPool(), Lane(n_threads),
+                                   slice_threads)
+    started.batch.wait()
+    n_comps = meta.n_components
+    levels, lnzs, fts = started.levels, started.lnzs, started.fts
+    mb_quant, mb_intra, mb_mv, mb_rep_add = started.mb
 
     out = dict(
         is_p=np.array([0 if ft.is_intra_picture else 1 for ft in fts],

@@ -1,13 +1,13 @@
-"""Parallel host parsing: pictures across a thread pool.
+"""Parallel host parsing: pictures across the process's parse pool.
 
 The port's copy of ``jsvx/pipeline/parallel_parse.py``.  Pictures are
 independently parseable once the sequence state (quant matrices, f_code
 in the picture header) is known: slice predictors reset per slice, and
 nothing in the slice layer depends on other pictures.  So the structural
 walk (sequence/GOP/picture headers) stays serial and cheap while the
-slice payloads, nearly all of the bits, fan out over a thread pool.  The
-C++ back end releases the GIL during ``jsv_parse_picture_slices``, so
-threads scale on real cores.
+slice payloads, nearly all of the bits, fan out over the process's parse
+pool (:mod:`.parse_pool`).  The C++ back end releases the GIL during
+``jsv_parse_picture_slices``, so threads scale on real cores.
 
 jsvx's serial branch through the Python slice parser is not carried: it
 runs only when jsvx's native parser is missing, and the port's
@@ -16,7 +16,6 @@ runs only when jsvx's native parser is missing, and the port's
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -27,6 +26,7 @@ from ..bitstream.parser import (FrameTensors, SequenceInfo, StreamParser,
                                 alloc_frame_tensors)
 from ..bitstream.native import get_native_parser
 from ..coding import tables as T
+from .parse_pool import Lane, picture_bytes
 
 
 @dataclass
@@ -57,7 +57,8 @@ def parse_stream_parallel(data: bytes, n_threads: int | None = None,
                           parser: StreamParser | None = None
                           ) -> ParsedStream:
     """Parse a complete stream with picture-level parallelism (the C++
-    parser, built on first use; a failed build raises)."""
+    parser, built on first use; a failed build raises).  ``n_threads``
+    as :class:`~jsvx_torch.pipeline.parse_pool.Lane` takes it."""
     data = bytes(data)
     arr = np.frombuffer(data, dtype=np.uint8)
     r = BitReader(data)
@@ -101,14 +102,13 @@ def parse_stream_parallel(data: bytes, n_threads: int | None = None,
         else:
             pos = off + 4
 
-    def run(job):
-        ft, start_bit, seq = job
+    def run(i):
+        ft, start_bit, seq = jobs[i]
         native.parse_picture_slices(arr, start_bit, ft,
                                     seq.mb_width, seq.mb_height, seq)
 
-    if jobs:
-        with ThreadPoolExecutor(max_workers=n_threads) as pool:
-            list(pool.map(run, jobs))
+    Lane(n_threads).submit(
+        run, picture_bytes([start_bit for _, start_bit, _ in jobs])).wait()
 
     return ParsedStream(meta=meta, seq=parser.seq, frames=frames,
                         gop_starts=gop_starts)

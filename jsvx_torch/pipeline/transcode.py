@@ -5,7 +5,11 @@ under jsvx's stage names.  Per GOP the host parses the pictures with the
 C++ parser into pooled buffers and packs them into one uint8 wire; the
 wire's copy to ``device`` starts at once, and the host parses the next
 GOP while the device decodes this one (each plane of each frame by the
-``impl`` chosen, see :mod:`jsvx_torch.pipeline.gop`).  Two wires:
+``impl`` chosen, see :mod:`jsvx_torch.pipeline.gop`).  The pictures parse
+on the process's parse pool (:mod:`jsvx_torch.pipeline.parse_pool`), and
+each GOP's are queued there one GOP ahead: before the host waits on GOP
+g's parse and packs it, GOP g+1's is queued behind it.  Packing stays in
+GOP order.  Two wires:
 
 * compact (the default): the coded coefficients only, expanded on the
   device, on a card by one launch of the expansion kernel per GOP
@@ -42,8 +46,9 @@ memory back.
 
 Stages in ``Metrics``:
 
-* ``parse``: the header walk, then per GOP the parse, the pack and the
-  start of the wire's copy;
+* ``parse``: the header walk, then per GOP the wait for its parse (and
+  the queueing of the next GOP's), the pack and the start of the wire's
+  copy;
 * ``wire_wait`` (compact GOPs): the host waits for the copy's event, the
   un-overlapped tail of the upload; the GOP's pooled buffers then go
   back to the pool, in time for the next parse;
@@ -56,14 +61,18 @@ Stages in ``Metrics``:
 * ``expand_probe_compile`` (``probe_expand=True``): the probe's first run.
 
 While a torch profiler records, each stage is also a span of the span
-log (:mod:`jsvx_torch.runtime.profiler`), with its GOP's index, and the
-log gets, besides: ``transcode`` around the call (its id, route and GOP
+log (:mod:`jsvx_torch.runtime.profiler`), with its GOP's index (a GOP's
+``parse`` also with its wire, its ``tasks`` on the pool and whether it
+was queued ``ahead``, before the previous GOP was packed), and the log
+gets, besides: ``transcode`` around the call (its id, route and GOP
 count), ``walk`` (the header walk, inside the call's first ``parse``),
 ``call_setup`` (the constants, the pool, the copier) and ``call_close``
 (the programs' check-in), and the programs' own spans and events
 (:mod:`jsvx_torch.pipeline.program`).
 
-Gauges: ``width``, ``height``, ``wire_bytes`` (every wire copied, dense
+Counter: ``parse_threads_started``, the parse pool's threads the call
+started (the process's first parse starts them all; 0 after).  Gauges:
+``width``, ``height``, ``wire_bytes`` (every wire copied, dense
 fallbacks included) and, with ``probe_expand``,
 ``expand_probe_s_per_gop``; on a card, the counters
 ``gop_program.captures`` and ``gop_program.replays`` and, once a call
@@ -86,7 +95,9 @@ from ..runtime.multihost import GopManifest
 from ..runtime.profiler import Metrics, recording, span
 from .gop import frame_decoder
 from .packed_parse import (BufferPool, parse_gop_compact, parse_gop_packed,
+                           start_gop_compact, start_gop_packed,
                            walk_stream_seqs)
+from .parse_pool import Lane
 from .program import CACHE, GopProgram, ProgramSet, program_key
 from .wire import flatten_wire, unflatten_wire, wire_spec
 
@@ -187,6 +198,10 @@ def transcode(data: bytes, sink=None, *, device="cuda",
     is ``"fused"`` or ``"two_kernel"``.  With a ``manifest``, completed
     GOPs are journaled and skipped on resume; with ``process_count > 1``
     only this process's round-robin share is decoded.
+    ``n_parse_threads``: 1 parses each GOP serially on the calling thread,
+    nothing ahead; None cuts each GOP into tasks by its coded bytes on the
+    process's parse pool; an int k does so with at most k tasks of the
+    call in flight (:class:`~jsvx_torch.pipeline.parse_pool.Lane`).
 
     The call leaves its GOP programs in the process's cache for the next
     call (on a card about 55-76 MB each at 1080p, at most 8 programs);
@@ -232,7 +247,8 @@ class _Run:
         self.arr = np.frombuffer(bytes(data), dtype=np.uint8)
         self.sink, self.device, self.impl = sink, device, impl
         self.manifest, self.metrics, self.quirk = manifest, metrics, quirk
-        self.n_threads = n_parse_threads
+        self.lane = Lane(n_parse_threads)
+        self.queued = None               # (GOP, its parse) queued ahead
         with metrics.timers.stage("parse"), span("walk") as walk:
             self.meta, self.seqs, self.groups = walk_stream_seqs(data)
             if recording():
@@ -259,16 +275,45 @@ class _Run:
         self.n_frames = 0
         self.wire_total = 0
 
-    def parse_dense(self, gi: int):
+    def start_compact(self, gi: int):
+        return start_gop_compact(self.arr, self.groups[gi], self.seqs[gi],
+                                 self.meta, self.pool, self.lane)
+
+    def start_dense(self, gi: int):
+        return start_gop_packed(self.arr, self.groups[gi], self.seqs[gi],
+                                self.meta, self.pool, self.lane)
+
+    def take(self, i: int, start) -> tuple:
+        """(the parse by ``start`` of GOP ``todo[i]``, whether it was
+        queued before the previous GOP was packed).  It is queued now
+        unless it was queued ahead; on a pooled lane the next GOP's parse
+        is then queued behind it, before the caller waits on this one:
+        one GOP ahead, so the parses' pooled buffers stay bounded at two
+        GOPs."""
+        gi = self.todo[i]
+        if self.queued is not None and self.queued[0] == gi:
+            started, early = self.queued[1], True
+        else:
+            started, early = start(gi), False
+        self.queued = None
+        if i + 1 < len(self.todo) and not self.lane.serial:
+            nxt = self.todo[i + 1]
+            self.queued = (nxt, start(nxt))
+        return started, early
+
+    def parse_dense(self, gi: int, started):
         return parse_gop_packed(self.arr, self.groups[gi], self.seqs[gi],
-                                self.meta, self.pool,
-                                n_threads=self.n_threads, index=gi)
+                                self.meta, self.pool, index=gi,
+                                started=started)
 
     def upload(self, stacked: dict, gi: int, n_frames: int, pooled: list,
                compact: bool) -> Upload:
         """Pack ``stacked`` into one pooled wire and start its copy into
-        the static wire of its layout's GOP program."""
+        the static wire of its layout's GOP program.  The parse's
+        ``pooled`` buffers go back to the pool once packed."""
         spec, buf = pack(stacked, self.pool)
+        for b in pooled:
+            self.pool.release(b)
         seq, consts = self.seqs[gi], self.consts[gi]
         key = program_key(spec, seq.mb_height, seq.mb_width,
                           self.meta.n_components, self.impl, self.quirk,
@@ -278,7 +323,7 @@ class _Run:
                                         *program.load())
         self.wire_total += buf.nbytes
         return Upload(index=gi, n_frames=n_frames, compact=compact,
-                      spec=spec, wire=wire, pooled=pooled + [buf],
+                      spec=spec, wire=wire, pooled=[buf],
                       copied=copied, program=program)
 
     def release(self, up: Upload) -> None:
@@ -304,8 +349,12 @@ class _Run:
             self.manifest.mark_done(up.index, frames=up.n_frames)
 
     def close(self) -> None:
-        """Give the call's GOP programs back to the cache."""
+        """Wait out a parse still queued (a call that failed ends after
+        its tasks) and give the call's GOP programs back to the cache."""
         with span("call_close"):
+            if self.queued is not None:
+                self.queued[1].batch.join()
+                self.queued = None
             self.programs.close()
 
     def result(self) -> TranscodeResult:
@@ -313,6 +362,7 @@ class _Run:
         m.gauge("width", self.meta.width)
         m.gauge("height", self.meta.height)
         m.gauge("wire_bytes", self.wire_total)
+        m.count("parse_threads_started", self.lane.threads_started)
         return TranscodeResult(n_frames=self.n_frames, n_gops=len(self.todo),
                                metrics=m, width=self.meta.width,
                                height=self.meta.height)
@@ -336,18 +386,24 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
     metrics = run.metrics
     buckets: dict = {}                   # sticky per-component buckets
 
-    def parse_one(gi: int) -> Upload:
+    def parse_one(i: int) -> Upload:
+        gi = run.todo[i]
         with metrics.timers.stage("parse", gop=gi, wire="compact") as s:
+            started, early = run.take(i, run.start_compact)
+            s.set(tasks=started.batch.tasks, ahead=early)
             g = parse_gop_compact(run.arr, run.groups[gi], run.seqs[gi],
-                                  run.meta, run.pool, buckets,
-                                  n_threads=run.n_threads, index=gi)
+                                  run.meta, run.pool, buckets, index=gi,
+                                  started=started)
             if not g.dirty:
                 return run.upload(g.stacked, gi, len(g.hdrs), g.pooled,
                                   compact=True)
             for buf in g.pooled:
                 run.pool.release(buf)
-            s.set(wire="dense")
-            g = run.parse_dense(gi)
+            # the dense fallback, in order: the next GOP's compact parse
+            # stays queued behind it
+            started = run.start_dense(gi)
+            s.set(wire="dense", tasks=started.batch.tasks, ahead=False)
+            g = run.parse_dense(gi, started)
             return run.upload(g.stacked, gi, len(g.fts), g.pooled,
                               compact=False)
 
@@ -363,7 +419,7 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
     todo = run.todo
     last = None
     pending = None
-    nxt = parse_one(todo[0]) if todo else None
+    nxt = parse_one(0) if todo else None
     for i, gi in enumerate(todo):
         up = nxt
         if up.compact:
@@ -376,7 +432,7 @@ def _compact_loop(run: _Run, probe_expand: bool) -> None:
                 wait(up.copied)
             run.release(up)
         outs, decoded = run.dispatch(up)
-        nxt = parse_one(todo[i + 1]) if i + 1 < len(todo) else None
+        nxt = parse_one(i + 1) if i + 1 < len(todo) else None
         if pending is not None:
             flush(pending)
         pending = (up, outs, decoded)
@@ -425,19 +481,22 @@ def _transcode_packed(data: bytes, sink, **kw) -> TranscodeResult:
 def _packed_loop(run: _Run) -> None:
     metrics = run.metrics
 
-    def parse_one(gi: int) -> Upload:
-        with metrics.timers.stage("parse", gop=gi, wire="dense"):
-            g = run.parse_dense(gi)
+    def parse_one(i: int) -> Upload:
+        gi = run.todo[i]
+        with metrics.timers.stage("parse", gop=gi, wire="dense") as s:
+            started, early = run.take(i, run.start_dense)
+            s.set(tasks=started.batch.tasks, ahead=early)
+            g = run.parse_dense(gi, started)
             return run.upload(g.stacked, gi, len(g.fts), g.pooled,
                               compact=False)
 
     todo = run.todo
-    nxt = parse_one(todo[0]) if todo else None
+    nxt = parse_one(0) if todo else None
     for i, gi in enumerate(todo):
         up = nxt
         outs, decoded = run.dispatch(up)
         # overlap: the host parses the next GOP while the device decodes
-        nxt = parse_one(todo[i + 1]) if i + 1 < len(todo) else None
+        nxt = parse_one(i + 1) if i + 1 < len(todo) else None
         with metrics.timers.stage("device_wait", gop=up.index):
             wait(decoded)
         run.release(up)

@@ -7,7 +7,14 @@ stacked dense parse (:func:`jsvx_torch.pipeline.packed_parse.
 parse_stream_packed`, without jsvx's distinct-vector sideband), on a
 synthetic 352x288 stream.
 
-Run: ``python -m jsvx_torch.tools.bench_parse``
+``--pool CLIP [CLIP ...]`` instead times ``transcode``'s host parse of
+each clip per GOP (:func:`bench_pool`): its pictures cut into 1 to
+CPUs tasks on the process's parse pool, each GOP's tasks queued a GOP
+ahead, then waited for and packed into one wire; the serial parse
+(``n_parse_threads=1``) and the byte rule (``parse_pool.TASK_BYTES``)
+beside them.  One JSON line a clip.
+
+Run: ``python -m jsvx_torch.tools.bench_parse [--pool CLIP ...]``
 """
 
 from __future__ import annotations
@@ -103,8 +110,90 @@ def bench_packed(data: bytes, reps: int = 3, slice_threads: int = 1,
     return n / dt
 
 
-def main():
+def bench_pool(data: bytes, tasks: list, passes: int = 9) -> dict:
+    """Milliseconds a GOP of ``transcode``'s host parse over every GOP of
+    ``data`` (compact wire, no device), for each count in ``tasks`` (the
+    tasks a GOP is cut into: ``parse_pool.TASK_BYTES`` set for the
+    largest GOP), ``"serial"`` (a lane of one thread: no pool, nothing
+    ahead) and ``"rule"`` (``TASK_BYTES`` as it stands); the median of
+    ``passes`` passes, the settings in turns."""
+    from ..pipeline import parse_pool
+    from ..pipeline.packed_parse import (BufferPool, parse_gop_compact,
+                                         start_gop_compact,
+                                         walk_stream_seqs)
+    from ..pipeline.transcode import pack
+
+    arr = np.frombuffer(data, np.uint8)
+    meta, seqs, groups = walk_stream_seqs(data)
+    gop_bytes = max(sum(parse_pool.picture_bytes([b for _, b in g]))
+                    for g in groups)
+    pool = BufferPool()
+    rule = parse_pool.TASK_BYTES
+
+    def one_pass(setting) -> float:
+        lane = parse_pool.Lane(1 if setting == "serial" else None)
+        parse_pool.TASK_BYTES = (-(-gop_bytes // setting)
+                                 if isinstance(setting, int) else rule)
+
+        def start(gi):
+            return start_gop_compact(arr, groups[gi], seqs[gi], meta, pool,
+                                     lane)
+
+        buckets: dict = {}
+        t0 = time.perf_counter()
+        queued = start(0)
+        for gi in range(len(groups)):
+            started = queued
+            queued = start(gi + 1) if gi + 1 < len(groups) else None
+            g = parse_gop_compact(arr, groups[gi], seqs[gi], meta, pool,
+                                  buckets, index=gi, started=started)
+            _, buf = pack(g.stacked, pool)
+            for b in g.pooled + [buf]:
+                pool.release(b)
+        return 1e3 * (time.perf_counter() - t0) / len(groups)
+
+    settings = ["serial", "rule"] + list(tasks)
+    times = {str(k): [] for k in settings}
+    try:
+        for p in range(passes + 1):
+            for k in settings[p % len(settings):] + \
+                    settings[:p % len(settings)]:
+                ms = one_pass(k)
+                if p:                    # the first pass warms the pools
+                    times[str(k)].append(ms)
+    finally:
+        parse_pool.TASK_BYTES = rule
+    n = len(groups[0])
+    return dict(gops=len(groups), pictures_per_gop=n, gop_bytes=gop_bytes,
+                cpus=parse_pool.POOL.size(),
+                rule_tasks=parse_pool.task_count(
+                    gop_bytes, n, parse_pool.POOL.size()),
+                ms_per_gop={k: float(np.median(v))
+                            for k, v in times.items()},
+                spread={k: float(np.percentile(v, 75) - np.percentile(v, 25))
+                        for k, v in times.items()})
+
+
+def main(argv=None):
+    import argparse
     import os
+
+    ap = argparse.ArgumentParser(prog="python -m jsvx_torch.tools.bench_parse")
+    ap.add_argument("--pool", nargs="+", metavar="CLIP",
+                    help="time transcode's per-GOP parse of each clip "
+                         "against the tasks a GOP is cut into")
+    ap.add_argument("--passes", type=int, default=9)
+    args = ap.parse_args(argv)
+    if args.pool:
+        from ..pipeline.parse_pool import cpus
+
+        for clip in args.pool:
+            with open(clip, "rb") as f:
+                data = f.read()
+            res = bench_pool(data, list(range(1, cpus() + 1)), args.passes)
+            print(json.dumps(dict(clip=os.path.basename(clip), **res)),
+                  flush=True)
+        return
 
     data = make_stream()
     print(f"stream: {len(data)} bytes")

@@ -22,6 +22,7 @@ import torch
 from jsvx.__main__ import main as jsvx_main
 from jsvx_torch.__main__ import main as cli_main
 from jsvx_torch.api import Decoder, Player, PlayerConfig
+from jsvx_torch.pipeline.parse_pool import POOL
 from jsvx_torch.runtime.profiler import TRACE_FILE
 from jsvx_torch.runtime.source import ChaosSource, MemorySource
 from jsvx_torch.tools.encoder import EncoderConfig, JsvEncoder, rgb_to_ycbcr
@@ -93,7 +94,7 @@ def test_cli_decode_oracle(stream_file, tmp_path, capsys, rgb):
 def test_cli_bench_with_device_trace(stream_file, tmp_path, capsys):
     """``bench --trace DIR`` wraps the run in a ``torch.profiler`` trace
     and leaves a Chrome trace behind; its stages and counters are jsvx's
-    ``bench``'s."""
+    ``bench``'s, and its parse pool's threads started."""
     path, _, _ = stream_file
     trace_dir = str(tmp_path / "trace")
     assert cli_main(["bench", path, "--trace", trace_dir] + CPU) == 0
@@ -106,7 +107,10 @@ def test_cli_bench_with_device_trace(stream_file, tmp_path, capsys):
     ref = _json_block(capsys)
     assert set(out["stages"]) == set(ref["stages"]) == {
         "parse", "wire_wait", "device_dispatch", "device_wait"}
-    assert out["counters"] == ref["counters"] == {"frames": 6, "gops": 2}
+    # and the port's count of the parse pool's threads the call started
+    counters = dict(out["counters"])
+    assert counters.pop("parse_threads_started") in (0, POOL.workers)
+    assert counters == ref["counters"] == {"frames": 6, "gops": 2}
     # jsvx's wire also carries its distinct-vector table, the port's not
     assert out["gauges"].keys() == ref["gauges"].keys()
     assert 0 < out["gauges"]["wire_bytes"] < ref["gauges"]["wire_bytes"]

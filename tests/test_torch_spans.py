@@ -21,7 +21,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from jsvbench import manifest
 from jsvbench.work import Window
 from jsvx_torch.api import Player, PlayerConfig
-from jsvx_torch.pipeline import program
+from jsvx_torch.pipeline import parse_pool, program
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx_torch.runtime import profiler
 from jsvx_torch.tools.encoder import EncoderConfig, JsvEncoder
@@ -109,6 +109,36 @@ def test_the_dense_route_spans_its_parses(stream):
             if "gop" in e[4]} == {"dense"}
 
 
+@pytest.mark.parametrize("quirk", [False, True], ids=["compact", "dense"])
+@pytest.mark.parametrize("task_bytes", [None, 1], ids=["rule", "per_picture"])
+def test_each_parse_span_has_its_tasks_and_whether_it_was_queued_ahead(
+        stream, monkeypatch, quirk, task_bytes):
+    """On the pool every GOP but the first was queued before the previous
+    GOP was packed; one thread queues nothing ahead.  A 48x64 GOP is far
+    under ``TASK_BYTES``: one task; with a byte a task, one a picture up
+    to the int's or the CPUs' count.  The call's ``parse_threads_started``
+    stays 0 once the pool runs."""
+    transcode(stream, device="cpu")             # the pool's threads start
+    if task_bytes is not None:
+        monkeypatch.setattr(parse_pool, "TASK_BYTES", task_bytes)
+    many = task_bytes is not None
+    for n_threads, ahead, tasks in (
+            (None, [False, True, True], min(3, parse_pool.cpus()) if many
+             else 1),
+            (1, [False, False, False], 1),
+            (2, [False, True, True], 2 if many else 1)):
+        got, dropped, _, res = _traced(lambda: transcode(
+            stream, device="cpu", quirk_oddify_zeros=quirk,
+            n_parse_threads=n_threads))
+        assert dropped == 0
+        parses = sorted((e for e in _named(got, "parse") if "gop" in e[4]),
+                        key=lambda e: e[4]["gop"])
+        assert [e[4]["ahead"] for e in parses] == ahead, n_threads
+        assert [e[4]["tasks"] for e in parses] == [tasks] * 3, n_threads
+        assert set(parses[0][4]) == {"gop", "wire", "tasks", "ahead"}
+        assert res.metrics.counters["parse_threads_started"] == 0
+
+
 def test_without_a_profiler_the_log_gains_nothing(stream):
     assert profiler.span("x") is profiler.span("y", gop=1)   # one no-op
     t0 = time.time_ns()
@@ -116,13 +146,18 @@ def test_without_a_profiler_the_log_gains_nothing(stream):
     player = Player(PlayerConfig(emit_rgb=True), device="cpu")
     _play(player, stream)
     assert profiler.spans(t0, time.time_ns()) == ([], 0)
-    # the stage, counter and gauge names are jsvx's, traced or not
+    # the stage, counter and gauge names are jsvx's, traced or not, and
+    # the port's count of the parse pool's threads each call started
     _, _, _, traced = _traced(lambda: transcode(
         stream, lambda gi, outs: None, device="cpu"))
     for res in (untraced, traced):
         assert set(res.metrics.timers.report()) == TRANSCODE_STAGES
-        assert dict(res.metrics.counters) == {"frames": 9, "gops": 3}
+        counters = dict(res.metrics.counters)
+        assert counters.pop("parse_threads_started") in (
+            0, parse_pool.POOL.workers)
+        assert counters == {"frames": 9, "gops": 3}
         assert set(res.metrics.gauges) == {"width", "height", "wire_bytes"}
+    assert traced.metrics.counters["parse_threads_started"] == 0
     assert traced.metrics.timers.counts == untraced.metrics.timers.counts
 
 
