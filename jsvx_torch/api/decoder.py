@@ -41,7 +41,7 @@ import torch
 
 from ..bitstream.bitio import BitReader, BitStallError
 from ..bitstream.container import (ContainerMeta, StartCodeIndex,
-                                   find_start_codes, parse_container_header)
+                                   parse_container_header)
 from ..bitstream.parser import FrameTensors, StreamParser
 from ..bitstream.ranges import RangeBuffer
 from ..coding import tables as T
@@ -54,6 +54,7 @@ from .config import PlayerConfig
 from .events import EventDispatcher
 
 BACKENDS = ("torch", "oracle")
+_BOUNDS = frozenset((T.START_PICTURE, T.START_GOP, T.START_SEQUENCE))
 
 
 def check_backend(backend: str) -> None:
@@ -77,11 +78,13 @@ class Decoder(EventDispatcher):
     """The streaming Decoder, reconstructing on ``device``.
 
     ``metrics`` holds the torch backend's stages: ``parse`` (the GOP
-    batch's picture parse), ``pack``, ``h2d`` and ``device_decode``, and
-    on a card the counters ``gop_program.captures`` and ``.replays``.
-    While a profiler records, the span log also gets, inside ``parse``,
-    each start-code ``scan``, each ``buffer_copy`` of the buffered stream
-    (here and in :class:`RangeBuffer`) and each ``picture_parse``.
+    batch's picture parse), ``pack``, ``h2d`` and ``device_decode``; the
+    buffer's counters ``scanned_bytes`` and ``copied_bytes``
+    (:class:`RangeBuffer`); and on a card the counters
+    ``gop_program.captures`` and ``.replays``.  While a profiler records,
+    the span log also gets each start-code ``scan`` (in ``feed``: the
+    buffer indexes the bytes each chunk brings), each ``buffer_copy`` of
+    the bytes a reader reads and each ``picture_parse``.
     """
 
     def __init__(self, config: PlayerConfig | None = None,
@@ -93,7 +96,7 @@ class Decoder(EventDispatcher):
         self.device = torch.device(device)
         self.metrics = Metrics()
         self._pool = BufferPool()
-        self.buffer = RangeBuffer()
+        self.buffer = RangeBuffer(self.metrics)
         self.buffer.on("stalled", lambda pos: self.emit("stalled", pos))
         self.parser = StreamParser(use_native=self.config.use_native_parser)
         self.meta: ContainerMeta | None = None
@@ -102,7 +105,6 @@ class Decoder(EventDispatcher):
         self._ended = False
         self._refs = None
         self._consts = None
-        self._index_cache: tuple[int, int, StartCodeIndex] | None = None
         self._pending: list[DecodedFrame] = []   # GOP-batch output queue
         self._pictures = 0                # pictures parsed, for the spans
 
@@ -134,24 +136,21 @@ class Decoder(EventDispatcher):
     # Helpers
 
     def _view_and_index(self):
-        view = self.buffer.contiguous_view(self.buffer.read_pos)
-        if view is None:
+        """(start, length, start-code index) of the buffered run at
+        ``read_pos``: the buffer's own index, kept as bytes arrive."""
+        got = self.buffer.start_codes(self.buffer.read_pos)
+        if got is None:
             self.emit("stalled", self.buffer.read_pos)
-            return None
-        data, base = view
-        key = (base, len(data))
-        if self._index_cache is None or self._index_cache[:2] != key:
-            with span("scan", bytes=len(data)):
-                idx = StartCodeIndex(find_start_codes(data, base))
-            self._index_cache = (base, len(data), idx)
-        return data, base, self._index_cache[2]
+        return got
 
-    def _reader(self, data: np.ndarray, base: int, off: int) -> BitReader:
-        """A reader at the start code at ``off``, over a copy of ``data``
-        (the buffered view from ``base``)."""
-        with span("buffer_copy", bytes=len(data)):
-            buf = data.tobytes()
-        return BitReader(buf, base=base, pos_bits=(off + 4) << 3)
+    def _reader(self, index: StartCodeIndex, off: int) -> BitReader:
+        """A reader at the start code at ``off``, over a copy of the bytes
+        up to the next picture, GOP or sequence start code and its four
+        bytes (what bounds the parse), or to the end of the buffered run
+        when that code is not buffered yet."""
+        nxt = index.next_code(off + 1, codes=_BOUNDS)
+        buf = self.buffer.read(off, nxt[0] + 4 if nxt else 1 << 62)
+        return BitReader(buf, base=off, pos_bits=(off + 4) << 3)
 
     def _parse_picture(self, r: BitReader, index, eos):
         with span("picture_parse", picture=self._pictures):
@@ -208,23 +207,23 @@ class Decoder(EventDispatcher):
             vi = self._view_and_index()
             if vi is None:
                 return None
-            data, base, index = vi
+            base, n, index = vi
             pos = self.buffer.read_pos
             nxt = index.next_code(pos)
             if nxt is None:
-                end = self._known_end(base, len(data))
+                end = self._known_end(base, n)
                 if end is not None:
                     self._ended = True
                     self.emit("ended")
                 else:
-                    self.emit("stalled", base + len(data))
+                    self.emit("stalled", base + n)
                 return None
             off, code = nxt
-            r = self._reader(data, base, off)
             try:
                 if code == T.START_SEQUENCE:
                     if not self.buffer.has(18, off):   # header size gate
                         return None
+                    r = self._reader(index, off)
                     seq = self.parser.parse_sequence_header(r)
                     if self._skip_till_gop:
                         self._skip_till_gop = False
@@ -235,6 +234,7 @@ class Decoder(EventDispatcher):
                 elif code == T.START_GOP:
                     if not self.buffer.has(8, off):
                         return None
+                    r = self._reader(index, off)
                     t = self.parser.parse_gop_header(r)
                     self.current_time_ms = t
                     self.buffer.advance_to(r.byte_pos)
@@ -243,8 +243,9 @@ class Decoder(EventDispatcher):
                             if self.parser.seq else 300000)
                     if not self.buffer.has(gate, off):
                         return None
-                    eos = self._known_end(base, len(data))
-                    ft = self._parse_picture(r, index, eos)
+                    r = self._reader(index, off)
+                    ft = self._parse_picture(r, index,
+                                             self._known_end(base, n))
                     self.buffer.advance_to(r.byte_pos)
                     if ft is None:
                         continue           # skipped picture type
@@ -318,23 +319,25 @@ class Decoder(EventDispatcher):
             vi = self._view_and_index()
             if vi is None:
                 break
-            data, base, index = vi
+            base, n, index = vi
             nxt = index.next_code(pos)
             if nxt is None or nxt[0] >= end:
-                self.buffer.advance_to(min(end, base + len(data)))
+                self.buffer.advance_to(min(end, base + n))
                 break
             off, code = nxt
-            r = self._reader(data, base, off)
             try:
                 if code == T.START_SEQUENCE:
+                    r = self._reader(index, off)
                     self._on_sequence(self.parser.parse_sequence_header(r))
                     self.buffer.advance_to(r.byte_pos)
                 elif code == T.START_GOP:
+                    r = self._reader(index, off)
                     self.current_time_ms = self.parser.parse_gop_header(r)
                     self.buffer.advance_to(r.byte_pos)
                 elif code == T.START_PICTURE:
+                    r = self._reader(index, off)
                     ft = self._parse_picture(
-                        r, index, self._known_end(base, len(data)) or end)
+                        r, index, self._known_end(base, n) or end)
                     self.buffer.advance_to(min(r.byte_pos, end))
                     if ft is not None:
                         fts.append(ft)
@@ -438,13 +441,13 @@ class Decoder(EventDispatcher):
         vi = self._view_and_index()
         if vi is None:
             return False
-        data, base, index = vi
+        base, n, index = vi
         nxt = index.next_code(self.buffer.read_pos, codes={want_code})
         if nxt is None:
-            self.emit("stalled", base + len(data))
+            self.emit("stalled", base + n)
             return False
         off, _ = nxt
-        r = self._reader(data, base, off)
+        r = self._reader(index, off)
         try:
             if want_code == T.START_SEQUENCE:
                 self.parser.parse_sequence_header(r)

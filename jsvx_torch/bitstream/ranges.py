@@ -7,9 +7,19 @@ missing offset), plans the next range to download against a forward-buffer
 window, trims the backward buffer to a byte budget, and exposes
 ``buffered`` ranges for the player's TimeRanges surface.
 
-Data is stored in merged contiguous segments (numpy copies) rather than a
-linked list of chunks: merge-on-insert keeps reads O(log n_segments) and
-hands the parser flat contiguous spans.
+Data is stored in merged contiguous segments (``bytearray``s) rather than
+a linked list of chunks: merge-on-insert keeps reads O(log n_segments) and
+hands the parser flat contiguous spans.  Each segment keeps its start-code
+index (absolute offsets) across appends, merges, overwrites and trims: an
+``add`` scans only the bytes it brought, plus 3 on each side for codes
+that straddle a seam, and a trim drops the entries below the new start.
+Trims and appends work in place, so the bytes left are never copied.  A
+``bytearray`` cannot be resized while a view of it is alive, so nothing
+outside this module holds one: readers get copies (:meth:`read`).
+
+``metrics`` counts ``scanned_bytes`` (the bytes handed to the start-code
+scanner) and ``copied_bytes`` (the bytes copied out for readers and
+views).
 """
 
 from __future__ import annotations
@@ -19,14 +29,19 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..runtime.profiler import span
+from ..runtime.profiler import Metrics, span
 from ..utils.events import EventDispatcher
+from .container import StartCodeIndex, find_start_codes
+
+_NO_CODES = np.empty((0, 2), dtype=np.int64)
 
 
 @dataclass
 class _Segment:
     start: int
     data: bytearray
+    # find_start_codes(data, start): int64[n, 2] of (offset, code)
+    codes: np.ndarray = field(default_factory=lambda: _NO_CODES)
 
     @property
     def end(self) -> int:                  # inclusive, reference convention
@@ -43,8 +58,9 @@ class RangeBuffer(EventDispatcher):
     * ``bufferremoved``(start, end) — a backward range was trimmed.
     """
 
-    def __init__(self):
+    def __init__(self, metrics: Metrics | None = None):
         super().__init__()
+        self.metrics = Metrics() if metrics is None else metrics
         self._segs: list[_Segment] = []
         self.total_length: int = 0         # 0 until known
         self.fully_loaded = False
@@ -54,33 +70,59 @@ class RangeBuffer(EventDispatcher):
     # -- ingest --------------------------------------------------------
 
     def add(self, start: int, data: bytes, total: int | None = None) -> None:
-        """Insert a downloaded chunk (sorted insert + merge)."""
+        """Insert a downloaded chunk (sorted insert + merge; the new bytes
+        win where they overlap buffered ones)."""
         if total:
             self.total_length = total
         if not data:
             return
         end = start + len(data) - 1
-        new = _Segment(start, bytearray(data))
-        merged: list[_Segment] = []
-        for seg in self._segs:
-            if seg.end + 1 < new.start:
-                merged.append(seg)
-            elif new.end + 1 < seg.start:
-                break
+        segs = self._segs
+        lo = 0
+        while lo < len(segs) and segs[lo].end + 1 < start:
+            lo += 1
+        hi = lo
+        while hi < len(segs) and segs[hi].start <= end + 1:
+            hi += 1
+        if lo == hi:
+            seg = _Segment(start, bytearray(data))
+            head = tail = _NO_CODES
+        else:
+            first, last = segs[lo], segs[hi - 1]
+            head = first.codes[:np.searchsorted(first.codes[:, 0],
+                                                start - 3)]
+            tail = last.codes[np.searchsorted(last.codes[:, 0], end,
+                                              side="right"):]
+            if first.start <= start and end <= first.end:
+                seg = first                 # an overwrite inside a segment
+                seg.data[start - seg.start:end + 1 - seg.start] = data
             else:
-                # overlap/adjacent: splice
-                if seg.start < new.start:
-                    head = seg.data[:new.start - seg.start]
-                    new.data = head + new.data
-                    new.start = seg.start
-                if seg.end > new.end:
-                    new.data = new.data + seg.data[new.end + 1 - seg.start:]
-        keep_tail = [s for s in self._segs
-                     if s.start > new.end + 1]
-        self._segs = merged + [new] + keep_tail
+                if first.start <= start:
+                    seg = first             # an append to its end
+                    del seg.data[start - seg.start:]
+                    seg.data += data
+                else:
+                    seg = _Segment(start, bytearray(data))
+                if last.end > end:          # bridges up to ``last``
+                    seg.data += memoryview(last.data)[end + 1 - last.start:]
+        seg.codes = np.concatenate([head, self._scan(seg, start - 3, end + 4),
+                                    tail])
+        self._segs = segs[:lo] + [seg] + segs[hi:]
         if (self.total_length
                 and self.buffered_from(0) >= self.total_length):
             self.fully_loaded = True
+
+    def _scan(self, seg: _Segment, lo: int, hi: int) -> np.ndarray:
+        """The start codes of ``seg`` whose four bytes lie in [lo, hi)."""
+        lo, hi = max(lo, seg.start), min(hi, seg.end + 1)
+        n = max(0, hi - lo)
+        with span("scan", bytes=n):
+            view = np.frombuffer(seg.data, dtype=np.uint8, count=n,
+                                 offset=lo - seg.start)
+            codes = find_start_codes(view, lo)
+            del view                        # the segment may resize again
+        self.metrics.count("scanned_bytes", n)
+        return codes
 
     # -- queries -------------------------------------------------------
 
@@ -117,9 +159,26 @@ class RangeBuffer(EventDispatcher):
         seg = self._seg_at(pos)
         if seg is None:
             return None
-        with span("buffer_copy", bytes=len(seg.data)):
-            data = bytes(seg.data)
-        return np.frombuffer(data, dtype=np.uint8), seg.start
+        return np.frombuffer(self.read(seg.start, seg.end + 1),
+                             dtype=np.uint8), seg.start
+
+    def read(self, lo: int, hi: int) -> bytes:
+        """A copy of the bytes [lo, hi), cut at the end of the contiguous
+        segment that holds ``lo`` (which must be buffered)."""
+        seg = self._seg_at(lo)
+        a, b = lo - seg.start, min(hi, seg.end + 1) - seg.start
+        with span("buffer_copy", bytes=b - a):
+            out = memoryview(seg.data)[a:b].tobytes()
+        self.metrics.count("copied_bytes", b - a)
+        return out
+
+    def start_codes(self, pos: int) -> tuple[int, int, StartCodeIndex] | None:
+        """(start, length, start-code index) of the contiguous segment
+        containing ``pos``; the index holds absolute offsets."""
+        seg = self._seg_at(pos)
+        if seg is None:
+            return None
+        return seg.start, len(seg.data), StartCodeIndex(seg.codes)
 
     def byte_ranges(self) -> list[tuple[int, int]]:
         """Merged (start, end_inclusive) list — the ``buffered`` surface."""
@@ -156,9 +215,9 @@ class RangeBuffer(EventDispatcher):
             if s.start < keep_from <= s.end:
                 drop = keep_from - s.start
                 self.emit("bufferremoved", s.start, keep_from - 1)
-                with span("buffer_copy", bytes=len(s.data) - drop):
-                    s.data = s.data[drop:]
+                del s.data[:drop]           # moves the start: no copy
                 s.start = keep_from
+                s.codes = s.codes[np.searchsorted(s.codes[:, 0], keep_from):]
             out.append(s)
         self._segs = out
 

@@ -187,6 +187,52 @@ def test_decoder_progressive_feed(stream):
     _bit_equal([_np(f) for f in got], [_np(f) for f in want])
 
 
+@pytest.fixture(scope="module")
+def long_stream():
+    """Three GOPs of noisy 176x144 video at quantiser 1: 358 KB, more than
+    one 300,000 B chunk and many times the encoder's backward limit
+    (bit_rate 3000: 11,250 B)."""
+    from conftest import synthetic_frames
+
+    rng = np.random.default_rng(0)
+    clip = [(np.clip(y.astype(int) + rng.integers(-30, 30, y.shape), 0,
+                     255).astype(np.uint8), cb, cr)
+            for y, cb, cr in synthetic_frames(12, 144, 176, seed=3)]
+    data = _encode(clip, gop_size=4, quantizer_scale=1)
+    _, frames = _decode(data, scan=False, backend="oracle")
+    return data, [_np(f) for f in frames]
+
+
+@pytest.mark.parametrize("chunk", [300_000, 4099, 997])
+@pytest.mark.parametrize("scan", [True, False])
+def test_decoder_scans_each_byte_once(long_stream, scan, chunk):
+    """Fed in chunks and drained between them, the Decoder gives the
+    oracle backend's frames, trims its buffer to the stream's backward
+    limit, hands the start-code scanner each byte once (plus 3 a side a
+    chunk) and copies out at most twice the stream."""
+    data, want = long_stream
+    d = Decoder(PlayerConfig(use_gop_scan=scan), device="cpu")
+    got, pos, chunks = [], 0, 0
+    while True:
+        frame = d.decode_frame()
+        if frame is not None:
+            got.append(_np(frame))
+            continue
+        if d.ended:
+            break
+        assert pos < len(data)
+        d.feed(pos, data[pos:pos + chunk], len(data))
+        pos, chunks = pos + chunk, chunks + 1
+    _within_1lsb(got, want)
+    assert d.buffer.bytes_backward_limit == 11_250
+    assert d.buffer.byte_ranges()[0][0] >= len(data) - 11_250 - 4
+    c = d.metrics.counters
+    assert len(data) <= c["scanned_bytes"] <= len(data) + 6 * chunks
+    assert len(data) // 2 < c["copied_bytes"] <= 2 * len(data)
+    if scan:
+        assert d.metrics.to_dict()["stages"]["parse"]["count"] > 0
+
+
 @pytest.mark.parametrize("scan", [True, False])
 def test_decoder_quirk(tiny_clip, scan):
     data = _encode(tiny_clip, gop_size=3, quantizer_scale=4, me_range=4)

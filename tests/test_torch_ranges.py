@@ -78,3 +78,79 @@ def test_backward_trimming():
     assert b.byte_ranges()[0][0] == 400
     # data before keep_from is gone; reads at cursor still work
     assert b.buffered_from(500) == 500
+
+
+# ---------------------------------------------------------------------------
+# The start-code index the buffer keeps, against jsvx's buffer and a fresh
+# scan of every segment
+
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+
+from jsvx.bitstream.ranges import RangeBuffer as JsvxRangeBuffer  # noqa: E402
+from jsvx_torch.bitstream.container import find_start_codes  # noqa: E402
+
+
+def _logged(b):
+    log = []
+    b.on("stalled", lambda pos: log.append(("stalled", pos)))
+    b.on("bufferremoved", lambda s, e: log.append(("bufferremoved", s, e)))
+    return log
+
+
+def _same_state(port, ref):
+    assert port.byte_ranges() == ref.byte_ranges()
+    assert (port.read_pos, port.fully_loaded) == (ref.read_pos,
+                                                  ref.fully_loaded)
+    for s, e in ref.byte_ranges():
+        want = ref.contiguous_view(s)[0].tobytes()
+        assert port.contiguous_view(s)[0].tobytes() == want
+        start, n, index = port.start_codes(e)
+        assert (start, n) == (s, e - s + 1)
+        assert np.array_equal(index.entries, find_start_codes(want, s))
+    for pos in (0, ref.read_pos, ref.read_pos + 7):
+        assert port.buffered_from(pos) == ref.buffered_from(pos)
+        assert (port.next_range_to_download(pos, forward_limit=64)
+                == ref.next_range_to_download(pos, forward_limit=64))
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_start_code_index_follows_adds_trims_and_seeks(seed):
+    """Seeded runs of adds (1-3 byte chunks, so codes straddle seams;
+    overlapping, overwriting and hole-bridging ones), ``advance_to`` with
+    a small backward limit, and seeks: after each step the port's index
+    is ``find_start_codes`` over each segment's bytes, and the ranges,
+    events and views are jsvx's.  Each add scans its own bytes and at
+    most 3 on each side."""
+    rng = np.random.default_rng(seed)
+    total = 600
+    alphabet = np.array([0, 0, 0, 1, 1, 0xB8, 0xC3, 7], np.uint8)
+    stream = rng.choice(alphabet, total).tobytes()
+    port, ref = RangeBuffer(), JsvxRangeBuffer()
+    logs = _logged(port), _logged(ref)
+    port.bytes_backward_limit = ref.bytes_backward_limit = int(
+        rng.integers(8, 40))
+    budget = 0
+    for _ in range(300):
+        op = rng.random()
+        if op < 0.7:
+            start = int(rng.integers(0, total))
+            n = int(rng.integers(1, 4) if rng.random() < 0.6
+                    else rng.integers(4, 60))
+            data = (stream[start:start + n] if rng.random() < 0.7
+                    else rng.choice(alphabet, n).tobytes())
+            data = data[:total - start]
+            tot = total if rng.random() < 0.5 else None
+            for b in (port, ref):
+                b.add(start, data, tot)
+            budget += len(data) + 6
+        elif op < 0.9:
+            pos = max(0, ref.read_pos + int(rng.integers(-10, 40)))
+            for b in (port, ref):
+                b.advance_to(pos)
+        else:
+            pos = int(rng.integers(0, total))
+            assert port.seek(pos) == ref.seek(pos)
+        assert logs[0] == logs[1]
+        _same_state(port, ref)
+    assert 0 < port.metrics.counters["scanned_bytes"] <= budget
