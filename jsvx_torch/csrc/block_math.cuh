@@ -4,11 +4,8 @@
 // fused_decode.cu, recon.cu and mc.cu all include it, so the three kernels
 // cannot drift apart; the plain PyTorch versions
 // (jsvx_torch/kernels/decode.py) compute the same steps in the same order.
-// Two forms of each step: one thread per 8-pixel row of a block in
-// registers (dequant_block_row, idct_block_row, idct8, halfpel_row8,
-// round_pack4: fused_decode.cu, recon.cu, mc.cu), and one thread per pixel
-// over a strip of blocks in shared memory (idct_strip, halfpel_predict:
-// the first designs, *_baseline.cu).
+// Each step takes one thread per 8-pixel row of a block, in registers
+// (dequant_block_row, idct_block_row, idct8, halfpel_row8, round_pack4).
 //
 // Exactness: each 1-D IDCT output is c[x,0]*f[0] + c[x,1]*f[1] + ... +
 // c[x,7]*f[7], summed left to right with __fmul_rn/__fadd_rn, so it is
@@ -43,62 +40,6 @@ __device__ __forceinline__ int dequant_coef(int lv, int mult, bool nonintra,
         d -= (d > 0) - (d < 0);                      // toward zero
     }
     return clampi(d, -2048, 2047);
-}
-
-// c_row[0] * f[0] + c_row[1] * f[stride] + ... + c_row[7] * f[7 * stride],
-// left to right, every product and partial sum rounded to f32.
-__device__ __forceinline__ float dot8(const float* c_row, const float* f,
-                                      int stride) {
-    float acc = __fmul_rn(c_row[0], f[0]);
-#pragma unroll
-    for (int k = 1; k < 8; ++k) {
-        acc = __fadd_rn(acc, __fmul_rn(c_row[k], f[k * stride]));
-    }
-    return acc;
-}
-
-// 8x8 IDCT of a strip of 8x8 blocks side by side, one thread per pixel:
-// thread (tx, ty) holds coefficient F[ty][tx] of its block in `f` and gets
-// back spatial value (ty, tx & 7) of the same block.  s_c is the basis
-// C (spatial = C @ F @ C.T); s_f and s_col are (8, kCtaW) scratch.  Every
-// thread of the CTA must call it (it holds two barriers).
-template <int kCtaW>
-__device__ __forceinline__ float idct_strip(float f, const float* s_c,
-                                            float (*s_f)[kCtaW],
-                                            float (*s_col)[kCtaW], int tx,
-                                            int ty) {
-    s_f[ty][tx] = f;
-    __syncthreads();
-    // column pass: cols[x][l] = sum_u C[x][u] * F[u][l]
-    s_col[ty][tx] = dot8(&s_c[ty * 8], &s_f[0][tx], kCtaW);
-    __syncthreads();
-    // row pass: rows[x][y] = sum_v C[y][v] * cols[x][v]
-    return dot8(&s_c[(tx & 7) * 8], &s_col[ty][tx & ~7], 1);
-}
-
-// Half-pel prediction of pixel (y, x) of an (h, w) plane from `ref`, with
-// the block's vector (mvy, mvx) in luma half-pel units; chroma vectors are
-// halved toward zero first.  Each tap index is clamped to the plane
-// (CLAMP_TO_EDGE), and each half-pel case rounds as MPEG-1 does.
-__device__ __forceinline__ int halfpel_predict(const uint8_t* __restrict__ ref,
-                                               int h, int w, int y, int x,
-                                               int mvy, int mvx,
-                                               bool is_chroma) {
-    if (is_chroma) {                     // truncation toward zero
-        mvy /= 2;
-        mvx /= 2;
-    }
-    const int oy = mvy & 1, ox = mvx & 1;
-    const int y0 = clampi(y + (mvy >> 1), 0, h - 1);     // >> floors
-    const int x0 = clampi(x + (mvx >> 1), 0, w - 1);
-    const int y1 = clampi(y + (mvy >> 1) + 1, 0, h - 1);
-    const int x1 = clampi(x + (mvx >> 1) + 1, 0, w - 1);
-    const int a = ref[(size_t)y0 * w + x0];
-    if (!oy && !ox) return a;
-    if (!oy) return (a + ref[(size_t)y0 * w + x1] + 1) >> 1;
-    if (!ox) return (a + ref[(size_t)y1 * w + x0] + 1) >> 1;
-    return (a + ref[(size_t)y0 * w + x1] + ref[(size_t)y1 * w + x0]
-            + ref[(size_t)y1 * w + x1] + 2) >> 2;
 }
 
 // ---------------------------------------------------------------------------
@@ -190,7 +131,7 @@ __device__ __forceinline__ uint32_t round_pack4(float s0, float s1, float s2,
 // out[x] = c[8x]*in[0] + c[8x+1]*in[1] + ... + c[8x+7]*in[7], left to
 // right.  The column pass (in = column l of F, out = column l of C @ F)
 // and the row pass (in = row x of C @ F, out = row x of C @ F @ C.T) are
-// both this function, in the same order as dot8.  With `c` a kernel
+// both this function.  With `c` a kernel
 // parameter the indices are constants and each basis entry is an operand
 // of its multiply, not a load.
 __device__ __forceinline__ void idct8(const float* c, const float (&in)[8],
@@ -289,8 +230,8 @@ __device__ __forceinline__ uint32_t avg4_round(uint32_t a, uint32_t b,
 
 // The half-pel prediction of one 8-pixel row, bytes 0-3 in p0 and 4-7 in
 // p1: pixel k of the row predicts from columns x0 + k (+1 when ox) of rows
-// y0 (and y1 when oy), each already clamped to the plane, as
-// halfpel_predict does per pixel.  `ref` must be 8-byte aligned.
+// y0 (and y1 when oy), each already clamped to the plane (CLAMP_TO_EDGE),
+// rounded as MPEG-1 does.  `ref` must be 8-byte aligned.
 __device__ __forceinline__ void halfpel_row8(const uint8_t* __restrict__ ref,
                                              int w, int y0, int y1, int x0,
                                              bool oy, bool ox, uint32_t& p0,

@@ -43,9 +43,8 @@
 // some 2 us of issue over 132 SMs: near the byte bound, so the arithmetic
 // has to overlap the memory traffic for the bytes to bound it.
 //
-// The design; the first one is csrc/color_baseline.cu, which only
-// chip_smoke.py launches.  What the first spent its time on, and what
-// this one does instead:
+// The design.  What the first design (PR 12's kernel) spent its time on,
+// and what this one does instead:
 //   1. per-CTA setup before the first load (a 256-entry table of v / 255
 //      and a barrier in each of 2,025 CTAs): no table, no barrier; a
 //      thread's first instructions are its loads;

@@ -25,7 +25,7 @@
 // the launch itself: an empty body on the same 3060-CTA grid takes 3.66 us
 // per launch back to back (PERF.md), so the kernel cannot beat the launch
 // floor, and the design spends as little as it can above it.  The first
-// design (mc_baseline.cu) ran one launch per plane, one thread per pixel:
+// design (PR 2's kernel) ran one launch per plane, one thread per pixel:
 // it read the block's vector and rep_add again for every pixel, gathered
 // up to four clamped single-byte taps per pixel and stored 2 B per thread.
 // The design answer:

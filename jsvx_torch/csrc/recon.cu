@@ -39,7 +39,7 @@
 // 31 rounded f32 operations per pixel of a coded block take about 1.4 us
 // at 67 TFLOP/s, but each of them and the dequantisation around them takes
 // an issue slot, as in the fused kernel.  The first design
-// (recon_baseline.cu) ran one launch per plane (3.66 us of launch floor
+// (PR 2's kernel) ran one launch per plane (3.66 us of launch floor
 // for a 1080p grid, three times a picture) on the per-pixel planes, one
 // thread per pixel with 1-2 byte loads, a shared copy of the basis behind
 // a barrier, both IDCT passes through shared memory with two barriers, and

@@ -1,17 +1,14 @@
 """Build the port's CUDA kernels on first use and bind them with ctypes.
 
-``nvcc`` compiles each source of a library in ``jsvx_torch/csrc/`` for
-Hopper (``sm_90a``), all at once in parallel processes, and links them
-into one shared library with a plain C interface, under
-``build/jsvx_torch/<key>/`` at the root of the checkout (``build/`` is
-git-ignored).  There are two libraries: ``"kernels"``, the five kernels
+``nvcc`` compiles each source in ``jsvx_torch/csrc/`` for Hopper
+(``sm_90a``), all at once in parallel processes, and links them into one
+shared library with a plain C interface, under ``build/jsvx_torch/<key>/``
+at the root of the checkout (``build/`` is git-ignored): the five kernels
 of the port's paths (the three picture kernels, the compact wire's
-expansion and the display colour), and ``"baselines"``, the first
-designs of the picture kernels and of the colour kernel, which only
-``chip_smoke.py`` loads (to time them in turns with the kernels).  The key is a hash of the library's
-sources, of every header in ``csrc/`` and of the command, so an edited
-file builds anew and an unchanged tree is loaded from disk.  Nothing is
-built at import time.
+expansion and the display colour).  The key is a hash of the sources, of
+every header in ``csrc/`` and of the command, so an edited file builds
+anew and an unchanged tree is loaded from disk.  Nothing is built at
+import time.
 """
 
 from __future__ import annotations
@@ -27,40 +24,24 @@ from dataclasses import dataclass
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-#: the sources of each library: the kernels the decode and the display
-#: run, and the first designs of the picture and colour kernels
-#: (``*_baseline.cu``), which only ``chip_smoke.py`` launches
-LIBRARIES = {
-    "kernels": ("fused_decode.cu", "recon.cu", "mc.cu", "expand.cu",
-                "color.cu"),
-    "baselines": ("fused_decode_baseline.cu", "recon_baseline.cu",
-                  "mc_baseline.cu", "color_baseline.cu"),
-}
-SOURCES = LIBRARIES["kernels"]
+#: the kernels the decode and the display run
+SOURCES = ("fused_decode.cu", "recon.cu", "mc.cu", "expand.cu", "color.cu")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "jsvx_torch")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: the argument types of the picture kernels' entry points (fused, recon)
 _PICTURE_ARGS = [_I, _P, _P, _I, _P, _P, _P, _I, _I, _P]
-#: each library's C entry points and their argument types
+#: the library's C entry points and their argument types
 ENTRY_POINTS = {
-    "kernels": {
-        "jsvx_fused_decode_picture": _PICTURE_ARGS,
-        "jsvx_recon_picture": _PICTURE_ARGS,
-        "jsvx_mc_picture": [_I, _P, _P, _I, _I, _P],
-        "jsvx_expand_gop": [_I, _P, _P, _I, _P, _I, _P],
-        "jsvx_colour_frame": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
-    },
-    "baselines": {
-        "jsvx_fused_decode_plane_baseline": [_P] * 11 + [_I] * 5 + [_P],
-        "jsvx_recon_plane_baseline": [_P] * 7 + [_I] * 4 + [_P],
-        "jsvx_mc_plane_baseline": [_P] * 4 + [_I] * 4 + [_P],
-        "jsvx_colour_frame_baseline": [_P, _P, _I, _I, _I, _P, _P, _I, _P],
-    },
+    "jsvx_fused_decode_picture": _PICTURE_ARGS,
+    "jsvx_recon_picture": _PICTURE_ARGS,
+    "jsvx_mc_picture": [_I, _P, _P, _I, _I, _P],
+    "jsvx_expand_gop": [_I, _P, _P, _I, _P, _I, _P],
+    "jsvx_colour_frame": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _P],
 }
 
-_locks = {name: threading.Lock() for name in LIBRARIES}
-_built: "dict[str, BuiltLibrary]" = {}
+_lock = threading.Lock()
+_built: "BuiltLibrary | None" = None
 
 
 @dataclass
@@ -91,13 +72,13 @@ def nvcc_command(sources: list[str], out: str, *,
             *(["-c"] if compile_only else ["-shared"]), "-o", out, *sources]
 
 
-def _key(csrc: str = CSRC, sources: tuple = SOURCES) -> str:
-    """Hash of ``sources`` and every ``*.cuh`` in ``csrc`` (names and
+def _key(csrc: str = CSRC) -> str:
+    """Hash of :data:`SOURCES` and every ``*.cuh`` in ``csrc`` (names and
     bytes) and of the commands: a header edit changes it as a source edit
     does."""
     h = hashlib.sha256()
     for name in sorted(os.listdir(csrc)):
-        if name in sources or name.endswith(".cuh"):
+        if name in SOURCES or name.endswith(".cuh"):
             h.update(name.encode() + b"\0")
             with open(os.path.join(csrc, name), "rb") as f:
                 h.update(f.read())
@@ -108,8 +89,8 @@ def _key(csrc: str = CSRC, sources: tuple = SOURCES) -> str:
     return h.hexdigest()[:16]
 
 
-def _declare(lib: ctypes.CDLL, name: str) -> None:
-    for fn_name, argtypes in ENTRY_POINTS[name].items():
+def _declare(lib: ctypes.CDLL) -> None:
+    for fn_name, argtypes in ENTRY_POINTS.items():
         fn = getattr(lib, fn_name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
@@ -134,23 +115,24 @@ def _run_nvcc(commands: list[list[str]]) -> tuple[str, list[int]]:
     return "".join(logs), codes
 
 
-def load(name: str = "kernels") -> BuiltLibrary:
-    """Build (if needed) and load library ``name``; once per process."""
-    sources = LIBRARIES[name]
-    with _locks[name]:
-        if name in _built:
-            return _built[name]
-        out_dir = os.path.join(BUILD_ROOT, _key(CSRC, sources))
-        path = os.path.join(out_dir, f"libjsvx_torch_{name}.so")
+def load() -> BuiltLibrary:
+    """Build (if needed) and load the kernels' library; once per
+    process."""
+    global _built
+    with _lock:
+        if _built is not None:
+            return _built
+        out_dir = os.path.join(BUILD_ROOT, _key())
+        path = os.path.join(out_dir, "libjsvx_torch_kernels.so")
         seconds, log = 0.0, ""
         if not os.path.exists(path):
             os.makedirs(out_dir, exist_ok=True)
             tag = f"tmp{os.getpid()}"
-            objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in sources]
+            objs = [os.path.join(out_dir, f"{s}.{tag}.o") for s in SOURCES]
             t0 = time.perf_counter()
             log, codes = _run_nvcc([
                 nvcc_command([os.path.join(CSRC, s)], o, compile_only=True)
-                for s, o in zip(sources, objs)])
+                for s, o in zip(SOURCES, objs)])
             if any(codes):
                 raise RuntimeError(f"nvcc failed ({codes}):\n{log}")
             tmp = f"{path}.{tag}"
@@ -163,7 +145,6 @@ def load(name: str = "kernels") -> BuiltLibrary:
                 os.remove(o)
             os.replace(tmp, path)
         lib = ctypes.CDLL(path)
-        _declare(lib, name)
-        _built[name] = BuiltLibrary(lib=lib, path=path, seconds=seconds,
-                                    log=log)
-        return _built[name]
+        _declare(lib)
+        _built = BuiltLibrary(lib=lib, path=path, seconds=seconds, log=log)
+        return _built

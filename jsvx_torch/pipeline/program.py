@@ -72,10 +72,9 @@ wire and, as the card's allocator reserves it during the capture, 48 MB
 of pool on the fused route (25 MB of expanded levels, 12.5 MB of output
 stacks, 3 MB of zero planes, in whole segments) and 69 MB on the
 two-kernel route (a picture's int16 prediction more); so a full cache of
-1080p programs holds about 0.6 GB (measured on an NVIDIA H100 80GB HBM3
-at 700 W by ``chip_smoke.py``'s phase 8).  The dense programs of
-``decode_group`` and ``decode_gops_parallel`` hold what phase 9 measures
-(README).  That memory stays held after the calls return, as long as the
+1080p programs holds about 0.6 GB (measured in PR 9 on an NVIDIA H100
+80GB HBM3 at 700 W).  The dense programs of ``decode_group`` and
+``decode_gops_parallel`` hold more (README).  That memory stays held after the calls return, as long as the
 process lives; ``CACHE.clear()`` closes the idle programs and gives it
 back to the caching allocator (``torch.cuda.empty_cache()`` then returns
 it to the card).

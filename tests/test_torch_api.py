@@ -21,6 +21,9 @@ The ``cuda``-marked test runs on a card:
 """
 
 import json
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -35,8 +38,11 @@ from jsvx.tools.oracle import decode_stream_oracle
 from jsvx.tools.refmath import ycbcr_to_rgb as ref_rgb
 from jsvx_torch.api import Decoder, Player
 from jsvx_torch.runtime.source import ByteSource as PortByteSource
-from jsvx_torch.kernels import fused
+from jsvx_torch.kernels.color import ycbcr_to_rgb_plain
+from jsvx_torch.pipeline.packed_parse import walk_stream
 from jsvx_torch.pipeline.stream import StreamDecoder
+
+import torch_card
 
 try:                  # the card's machine has no JAX, which conftest needs
     from test_high_motion import high_motion_stream  # noqa: F401 (fixture)
@@ -45,6 +51,7 @@ except ImportError:
 
 torch.set_num_threads(1)
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVENTS = ("loadstart", "durationchange", "loadedmetadata", "loadeddata",
           "progress", "canplay", "canplaythrough", "play", "playing",
           "pause", "timeupdate", "waiting", "stalled", "unstalled",
@@ -519,50 +526,135 @@ def test_cli_play_and_info(stream, tmp_path, capsys):
 # The card
 
 
-@pytest.mark.cuda
-def test_decoder_on_the_card_equals_the_cpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the fused kernel has no CPU mode")
-    from jsvx_torch.tools.fixture import zoom_clip
+def _card_stream(label):
+    """A 128x96 stream of 8 frames at GOP 4 or 2 (``128x96-gop4``), or a
+    stream of ``tests/torch_card.py``."""
+    if label.startswith("128x96"):
+        from jsvx_torch.tools.fixture import zoom_clip
 
-    data = JsvEncoder(128, 96, EncoderConfig(
-        gop_size=4, quantizer_scale=5, me_range=6, half_pel_refine=True)) \
-        .encode(zoom_clip(96, 128, 8, seed=5))
+        return JsvEncoder(128, 96, EncoderConfig(
+            gop_size=int(label[-1]), quantizer_scale=5, me_range=6,
+            half_pel_refine=True)).encode(zoom_clip(96, 128, 8, seed=5))
+    return torch_card.stream(label)
+
+
+def _decoder_frames(data, device, scan, quirk=False, seek_gop=None):
+    """Every frame through the port's Decoder, as numpy; with
+    ``seek_gop``, those after a seek to that key-map GOP's time, made once
+    the first frame is out."""
+    d = Decoder(PlayerConfig(use_gop_scan=scan, quirk_oddify_zeros=quirk),
+                device=device)
+    d.feed(0, data, total=len(data))
+    if seek_gop is not None:
+        assert d.decode_frame() is not None
+        t = d.meta.key_map.time_of(seek_gop, d.sequence.picture_rate)
+        assert d.seek(t * 1e3)
+    frames = list(d.iter_frames())
+    assert d.ended
+    assert all(p.device.type == torch.device(device).type
+               for f in frames for p in f.planes)
+    return torch_card.as_numpy(f.planes for f in frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["128x96-gop4", "1080p",
+                                   "320x320-256mv", "yuva-128x96"])
+def test_decoder_on_the_card_equals_the_cpu(label, tmp_path):
+    """The Decoder on the card (GOP batch and picture by picture, after a
+    seek to GOP 1, with the quirk) == the Decoder on the CPU, the fused
+    kernel once a picture; the Player with RGB == the CPU's Player
+    (events, RGB), its RGB the plain colour of the coded frame cropped to
+    the display size and within 1 LSB of ``refmath``, the colour kernel
+    once a frame shown; ``python -m jsvx_torch play`` on the card plays
+    the stream to its end."""
+    dev = torch_card.card()
+    data = _card_stream(label)
+    quirked = _decoder_frames(data, "cpu", True, quirk=True)
+    cpu = _decoder_frames(data, "cpu", True)
     for scan in (True, False):
-        fused.launches = 0
-        _, gpu = _decode(data, scan=scan, device="cuda")
-        assert fused.launches == 8            # one launch per picture
-        _, cpu = _decode(data, scan=scan, device="cpu")
-        assert all(p.device.type == "cuda" for f in gpu for p in f.planes)
-        _bit_equal([tuple(p.cpu().numpy() for p in f.planes) for f in gpu],
-                   [_np(f) for f in cpu])
+        for quirk, want in ((False, cpu), (True, quirked)):
+            got, n = torch_card.counted(
+                lambda: _decoder_frames(data, dev, scan, quirk))
+            assert n == torch_card.want_counts(fused=len(want)), scan
+            torch_card.assert_frames_equal(got, want)
+        tail = _decoder_frames(data, dev, scan, seek_gop=1)
+        assert 0 < len(tail) < len(cpu)
+        torch_card.assert_frames_equal(tail, cpu[len(cpu) - len(tail):])
+
+    (ev, rgb, planes, _), n = torch_card.counted(
+        lambda: torch_card.play_rgb(data, dev))
+    ev_cpu, rgb_cpu, _, _ = torch_card.play_rgb(data, "cpu")
+    assert ev == ev_cpu and ev[0][0] == "loadstart" and ev[-1][0] == "ended"
+    assert n == torch_card.want_counts(fused=len(rgb), color=len(rgb))
+    torch_card.assert_frames_equal([(x,) for x in rgb],
+                                   [(x,) for x in rgb_cpu])
+    meta = walk_stream(data)[0]
+    for x, f in zip(rgb, planes, strict=True):
+        assert x.shape == (meta.height, meta.width, len(f))
+        t = [torch.from_numpy(q).to(dev) for q in f]
+        plain = ycbcr_to_rgb_plain(*t[:3], t[3] if len(t) > 3 else False)
+        assert np.array_equal(x, plain[:meta.height, :meta.width].cpu())
+        want = ref_rgb(*f[:3])[:meta.height, :meta.width]
+        assert np.abs(x[..., :3].astype(int) - want.astype(int)).max() <= 1
+        if len(f) == 4:
+            assert np.array_equal(x[..., 3], f[3][:meta.height, :meta.width])
+
+    clip = tmp_path / "clip.jsv"
+    clip.write_bytes(data)
+    proc = subprocess.run(
+        [sys.executable, "-m", "jsvx_torch", "play", str(clip), "--rgb",
+         "--rate", "8", "--device", str(dev)], cwd=REPO,
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["ended"] is True and report["frames_shown"] == len(cpu)
 
 
 @pytest.mark.cuda
-def test_pipelined_transcode_on_the_card_equals_the_cpu():
-    """``transcode`` on a card: pinned pool buffers, and each route's
-    planes (every GOP kept by the sink until the run ends) equal to the
-    CPU's, over four GOPs."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+@pytest.mark.parametrize("label,quirk", [
+    ("128x96-gop2", False), ("1080p", False), ("1080p", True),
+    ("1080p-8-gops", False), ("48x64-dirty", False), ("cif-352x288", False),
+    ("yuva-128x96", False)])
+def test_pipelined_transcode_on_the_card_equals_the_cpu(label, quirk):
+    """``transcode`` on a card, each route from a cold program cache under
+    CUDA's sync debug mode: every pooled buffer pinned; no sync after GOP
+    0's dispatch outside the waits meant for it (``wire_wait``,
+    ``device_wait``), captures of later GOPs included; each picture
+    through its route's kernels once and each GOP on the compact wire
+    through the expansion kernel once; the planes the sink kept, read
+    after the run, equal to the CPU's, and within 1 LSB of the float64
+    oracle (but at 1080p, whose oracle the CPU tests hold the CPU to)."""
+    dev = torch_card.card()
+    from jsvx_torch.pipeline import program
     from jsvx_torch.pipeline.packed_parse import BufferPool
     from jsvx_torch.pipeline.transcode import transcode
-    from jsvx_torch.tools.fixture import zoom_clip
+    from jsvx_torch.tools import decode_stream_oracle
 
     pool = BufferPool(pin=True)
     buf = pool.acquire((4096,), np.uint8)
     assert pool.host_tensor(buf).is_pinned()
     assert torch.from_numpy(buf).is_pinned()
-    data = JsvEncoder(128, 96, EncoderConfig(
-        gop_size=2, quantizer_scale=5, me_range=6, half_pel_refine=True)) \
-        .encode(zoom_clip(96, 128, 8, seed=5))
+    data = _card_stream(label)
+    n_compact = 0 if quirk else torch_card.compact_gops(data)
+    oracle = (None if label.startswith("1080p") else
+              [f.planes for f in decode_stream_oracle(data, quirk)])
     for impl in ("fused", "two_kernel"):
-        runs = []
-        for device in ("cuda", "cpu"):
-            kept = {}
-            transcode(data, lambda gi, outs: kept.__setitem__(gi, outs),
-                      device=device, impl=impl)
-            assert sorted(kept) == [0, 1, 2, 3]
-            runs.append([o.cpu() for gi in sorted(kept) for o in kept[gi]])
-        for a, b in zip(*runs):
-            assert torch.equal(a, b)
+        kept = {}
+        transcode(data, lambda gi, outs: kept.__setitem__(gi, outs),
+                  device="cpu", impl=impl, quirk_oddify_zeros=quirk)
+        cpu = [tuple(s[i].numpy() for s in kept[g]) for g in sorted(kept)
+               for i in range(kept[g][0].shape[0])]
+        program.CACHE.clear()
+        w = torch_card.watched_transcode(data, dev, impl, quirk)
+        n_f = w["res"].n_frames
+        routes = dict(fused=n_f) if impl == "fused" else dict(mc=n_f,
+                                                              recon=n_f)
+        assert w["launches"] == torch_card.want_counts(**routes,
+                                                       expand=n_compact)
+        assert w["pins"] and all(w["pins"])
+        assert not w["after_gop0_outside_waits"], w["spans"]
+        assert w["distinct_planes"] and w["gops"] == sorted(kept)
+        torch_card.assert_frames_equal(w["frames"], cpu)
+        for f, o in zip(w["frames"], oracle or (), strict=bool(oracle)):
+            for p, q in zip(f, o, strict=True):
+                assert np.abs(p.astype(int) - q.astype(int)).max() <= 1

@@ -17,7 +17,8 @@ of an odd display size against jsvx's.
 On the CPU ``ycbcr_to_rgb`` is its plain version; the colour kernel
 (``csrc/color.cu``, CUDA C++ for sm_90a) runs only on a card, in the
 ``cuda``-marked test (0 differing bytes from the plain version and from
-the CPU) and in ``chip_smoke.py``; its launch plan and a numpy walk of it
+the CPU, also on frames of the streams of ``tests/torch_card.py``); its
+launch plan and a numpy walk of it
 are tested on the CPU in ``tests/test_torch_color_plan.py``:
 ``python -m pytest tests/test_torch_color.py -m cuda --noconftest``.
 """
@@ -43,7 +44,10 @@ from jsvx_torch.api import Player, PlayerConfig
 from jsvx_torch.kernels import color, counters
 from jsvx_torch.kernels.color import ycbcr_to_rgb, ycbcr_to_rgb_plain
 from jsvx_torch.pipeline.stream import StreamDecoder
+from jsvx_torch.pipeline.packed_parse import walk_stream
 from jsvx_torch.tools.synthetic import TRIPLES_LUMA, colour_triples
+
+import torch_card
 
 torch.set_num_threads(1)
 
@@ -324,17 +328,7 @@ def test_player_rgb_equals_jsvx_player(yuva):
 # ---------------------------------------------------------------------------
 # The card
 
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card():
-    """The colour kernel == its plain version on the card and == the CPU,
-    0 differing bytes: every triple (three alpha modes), crop views of a
-    random frame, widths 1-17 at odd heights, planes whose base or stride
-    is not a multiple of 16 (the byte path), a 4100-wide frame (nine
-    segments) and the 1920x1080 crop of a 1920x1088 frame; one launch per
-    call."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    dev = torch.device("cuda", 0)
+def _random_cases(dev):
     y, cb, cr = (torch.from_numpy(p).to(dev) for p in colour_triples())
     a = torch.from_numpy(np.random.default_rng(11).integers(
         0, 256, TRIPLES_LUMA).astype(np.uint8)).to(dev)
@@ -358,6 +352,50 @@ def test_kernel_matches_plain_on_the_card():
     cases += [(wy, wcb, wcr, m) for m in (False, True, wa)]
     hy, hcb, hcr, _ = (p.to(dev) for p in _frame(1088, 1920, seed=2))
     cases.append((hy[:1080], hcb[:540], hcr[:540], False))
+    return cases
+
+
+def _stream_cases(label, dev):
+    """Every frame of a stream of ``tests/torch_card.py`` decoded on the
+    card, at its display crop (views, as the Player's ``_to_rgb`` passes
+    them) without alpha, opaque and with its alpha plane where it has
+    one, a 1080-row frame also at 1920x1080; odd crops of its first
+    frame."""
+    data = torch_card.stream(label)
+    meta = walk_stream(data)[0]
+    frames = StreamDecoder(data, device=dev).decode().frames
+
+    def crop(f, h, w):
+        hc, wc = -(-h // 2), -(-w // 2)
+        return (f[0][:h, :w], f[1][:hc, :wc], f[2][:hc, :wc],
+                *(a[:h, :w] for a in f[3:]))
+
+    cases = []
+    for f in frames:
+        v = crop(f, meta.height, meta.width)
+        cases += [(*v[:3], m) for m in (False, True, *v[3:])]
+        if f[0].shape[0] > 1080:
+            cases.append((*crop(f, 1080, 1920)[:3], False))
+    f = frames[0]
+    for h, w in ((f[0].shape[0] - 1, f[0].shape[1] - 3), (1, 1), (37, 5)):
+        v = crop(f, h, w)
+        cases.append((*v[:3], v[3] if len(v) > 3 else True))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["random", "1080p", "yuva-128x96",
+                                    "cif-352x288"])
+def test_kernel_matches_plain_on_the_card(source):
+    """The colour kernel == its plain version on the card and == the CPU,
+    0 differing bytes: every triple (three alpha modes), crop views of a
+    random frame, widths 1-17 at odd heights, planes whose base or stride
+    is not a multiple of 16 (the byte path), a 4100-wide frame (nine
+    segments) and the 1920x1080 crop of a 1920x1088 frame; and the
+    decoded frames of the card's streams; one launch per call."""
+    dev = torch_card.card()
+    cases = (_random_cases(dev) if source == "random"
+             else _stream_cases(source, dev))
     for y_, cb_, cr_, m in cases:
         before = color.launches
         got = ycbcr_to_rgb(y_, cb_, cr_, m)

@@ -7,7 +7,9 @@ never crashes or hangs.  Where jsvx's test only asks that, the port is
 also held to jsvx on the same damaged input: the same outcome (error or
 not), the same stalls, and planes within 1 LSB on at most 0.1 % of
 pixels (the port's tolerance against jsvx's f32 IDCT).  ``transcode`` goes
-through the same truncations and bit flips, against jsvx's.
+through the same truncations and bit flips, against jsvx's.  On a card
+(``cuda``-marked), the damaged 1080p fixture reaches the CPU's outcome
+with the CPU's planes.
 """
 
 import numpy as np
@@ -17,12 +19,18 @@ import torch
 from jsvx.api import Decoder as JDecoder
 from jsvx.api import Player as JPlayer
 from jsvx.api import PlayerConfig as JConfig
-from jsvx.pipeline.transcode import transcode as j_transcode
 from jsvx_torch.api import Decoder, Player, PlayerConfig
 from jsvx_torch.pipeline.transcode import transcode
 from jsvx_torch.tools.encoder import EncoderConfig, JsvEncoder
 
-from conftest import synthetic_frames
+import torch_card
+
+try:                                     # the card's machine has no JAX
+    from jsvx.pipeline.transcode import transcode as j_transcode
+
+    from conftest import synthetic_frames
+except ImportError:
+    j_transcode = None
 
 torch.set_num_threads(1)
 
@@ -35,7 +43,7 @@ def good_stream():
 
 
 def _np(p):
-    return p.numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
+    return p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
 
 
 def _drain(dec, data, total=None):
@@ -177,29 +185,39 @@ def _transcode_outcome(run, data):
     return sorted(got), frames, err
 
 
-def _damaged(data):
-    rng = np.random.default_rng(7)
-    out = [data[:len(data) // 2], data[:int(len(data) * 0.7)],
-           data[:len(data) - 5]]
-    for _ in range(6):
-        buf = bytearray(data)
-        for _ in range(4):
-            pos = int(rng.integers(60, len(buf)))
-            buf[pos] ^= 1 << int(rng.integers(0, 8))
-        out.append(bytes(buf))
-    return out
-
-
 @pytest.mark.parametrize("impl", ["fused", "two_kernel"])
 def test_transcode_damaged_streams_match_jsvx(good_stream, impl):
     """Truncated and bit-flipped streams through ``transcode``: the same
     GOPs delivered and the same outcome as jsvx's, the planes within the
     tolerance."""
     data, _ = good_stream
-    for bad in _damaged(data):
+    for bad in torch_card.damaged(data):
         gops, frames, err = _transcode_outcome(
             lambda d, s: transcode(d, s, device="cpu", impl=impl), bad)
         ref = _transcode_outcome(lambda d, s: j_transcode(d, s, impl="xla"),
                                  bad)
         assert (gops, err) == (ref[0], ref[2])
         _close(frames, ref[1])
+
+
+@pytest.mark.cuda
+def test_damaged_fixture_on_the_card_equals_the_cpu():
+    """The 1080p fixture truncated (declared whole, so the Decoder
+    stalls, and as it is, so it ends) and bit-flipped: on the card the
+    Decoder and ``transcode`` (both routes) reach the CPU's outcome
+    (stalls, GOPs delivered, error) with the CPU's planes."""
+    dev = torch_card.card()
+    data = torch_card.stream("1080p")
+    damaged = torch_card.damaged(data)
+    for bad, total in ([(b, len(b)) for b in damaged]
+                       + [(b, len(data)) for b in damaged[:3]]):
+        got, want = (_drain(Decoder(PlayerConfig(), device=d), bad, total)
+                     for d in (dev, "cpu"))
+        assert got[1:] == want[1:], total
+        torch_card.assert_frames_equal(got[0], want[0])
+        for impl in ("fused", "two_kernel"):
+            got, want = (_transcode_outcome(
+                lambda x, s: transcode(x, s, device=d, impl=impl), bad)
+                for d in (dev, "cpu"))
+            assert (got[0], got[2]) == (want[0], want[2]), impl
+            torch_card.assert_frames_equal(got[1], want[1])

@@ -16,7 +16,8 @@ The expansion is integer, so everything here is bit-equal:
   320x320 shapes (encoded streams where a CPU encode is quick).
 
 The kernel itself (CUDA C++ for sm_90a) runs only on a card, in the
-``cuda``-marked test and in ``chip_smoke.py``:
+``cuda``-marked test (the synthetic GOPs and the streams of
+``tests/torch_card.py``):
 ``python -m pytest tests/test_torch_expand.py -m cuda --noconftest``.
 """
 
@@ -45,6 +46,8 @@ from jsvx_torch.pipeline.packed_parse import (BufferPool, parse_gop_compact,
 from jsvx_torch.pipeline.wire import flatten_wire, unflatten_wire, wire_spec
 from jsvx_torch.tools import EncoderConfig, JsvEncoder
 from jsvx_torch.tools.fixture import zoom_clip
+
+import torch_card
 
 torch.set_num_threads(1)
 
@@ -526,38 +529,53 @@ def test_too_many_components_rejected():
 
 def test_build_key_tracks_the_expansion_source(tmp_path):
     """The kernels' library holds expand.cu and declares its entry point;
-    an edit to it changes that library's key and not the first designs'."""
-    assert "expand.cu" in build.LIBRARIES["kernels"]
-    assert "jsvx_expand_gop" in build.ENTRY_POINTS["kernels"]
+    an edit to it changes the library's key."""
+    assert "expand.cu" in build.SOURCES
+    assert "jsvx_expand_gop" in build.ENTRY_POINTS
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
-
-    def keys():
-        return tuple(build._key(str(csrc), s)
-                     for s in build.LIBRARIES.values())
-
-    before = keys()
+    before = build._key(str(csrc))
     path = csrc / "expand.cu"
     orig = path.read_bytes()
     path.write_bytes(orig + b"\n// edited\n")
-    assert tuple(a != b for a, b in zip(keys(), before)) == (True, False)
+    assert build._key(str(csrc)) != before
     path.write_bytes(orig)
-    assert keys() == before
+    assert build._key(str(csrc)) == before
 
 
 # ---------------------------------------------------------------------------
 # The card
 
+def _card_trees(source, dev):
+    """(name, wire on the card, mb_h, mb_w): every synthetic GOP, or every
+    GOP of a stream of ``tests/torch_card.py`` (each on the compact
+    wire)."""
+    if source == "synthetic":
+        for name in sorted(SYNTHETIC):
+            seed, n, mb_h, mb_w, kw = SYNTHETIC[name]
+            stacked = synthetic_gop(seed, n, mb_h, mb_w, **kw)
+            spec = wire_spec(stacked)
+            yield name, unflatten_wire(torch.from_numpy(
+                flatten_wire(stacked, spec)).to(dev), spec), mb_h, mb_w
+        return
+    data = torch_card.stream(source)
+    seq = walk_stream(data)[1]
+    for gi, (compact, tree) in enumerate(torch_card.wires(data, dev)):
+        assert compact, gi
+        yield f"GOP {gi}", tree, seq.mb_height, seq.mb_width
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    for name in sorted(SYNTHETIC):
-        seed, n, mb_h, mb_w, kw = SYNTHETIC[name]
-        stacked = synthetic_gop(seed, n, mb_h, mb_w, **kw)
-        spec = wire_spec(stacked)
-        tree = unflatten_wire(torch.from_numpy(
-            flatten_wire(stacked, spec)).cuda(), spec)
+@pytest.mark.parametrize("source", ["synthetic", "1080p", "320x320-256mv",
+                                    "cif-352x288", "yuva-128x96"])
+def test_kernel_matches_plain_on_the_card(source):
+    """One launch a GOP, every leaf equal to the plain version's (dtype,
+    shape, values), and each component's one-component launch equal to
+    the plain levels: the synthetic GOPs, and every GOP on the compact
+    wire of the card's streams."""
+    dev = torch_card.card()
+    for name, tree, mb_h, mb_w in _card_trees(source, dev):
+        n = int(tree["is_p"].shape[0])
         before = expand.launches
         got = expand.expand_compact_gop(tree, mb_h, mb_w)
         want = expand.expand_compact_gop_plain(tree, mb_h, mb_w)

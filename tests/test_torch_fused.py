@@ -1,8 +1,9 @@
 """The fused decode kernel's wrapper, build command and JAX-free import.
 
 On the CPU the wrapper runs the kernel's plain version; the kernel itself
-(CUDA C++ for sm_90a) runs only on a card, in the ``cuda``-marked test
-and in ``chip_smoke.py``.  On a machine with a card and without JAX:
+(CUDA C++ for sm_90a) runs only on a card, in the ``cuda``-marked test,
+on random inputs and on the encoded GOPs of ``tests/torch_card.py``.  On
+a machine with a card and without JAX:
 ``python -m pytest tests/test_torch_fused.py -m cuda --noconftest``
 (``tests/conftest.py`` imports JAX; this file needs none of it).
 """
@@ -18,6 +19,8 @@ import torch
 from jsvx_torch.kernels import build, fused
 from jsvx_torch.kernels.decode import (decode_frame_plane,
                                        decode_frame_planes, make_constants)
+
+import torch_card
 
 torch.set_num_threads(1)
 
@@ -232,77 +235,60 @@ def test_nvcc_command_targets_hopper_without_fma():
     assert "-c" in obj and "-shared" not in obj
     assert obj[obj.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
     assert "-fmad=false" in obj and cmd[-1] == "k.cu"
-    assert build.SOURCES == build.LIBRARIES["kernels"] == (
+    assert build.SOURCES == (
         "fused_decode.cu", "recon.cu", "mc.cu", "expand.cu", "color.cu")
-    # the first designs, which only chip_smoke.py launches, build apart
-    assert build.LIBRARIES["baselines"] == (
-        "fused_decode_baseline.cu", "recon_baseline.cu", "mc_baseline.cu",
-        "color_baseline.cu")
     assert all(os.path.exists(os.path.join(build.CSRC, s))
-               for sources in build.LIBRARIES.values() for s in sources)
-    assert set(build.ENTRY_POINTS) == set(build.LIBRARIES)
+               for s in build.SOURCES)
     assert build.BUILD_ROOT == os.path.join(REPO, "build", "jsvx_torch")
 
 
-def test_build_key_tracks_every_source_and_header(tmp_path):
-    """A stale library must never load: an edit to the shared header, as
-    to any source, changes the build key; other files do not."""
+@pytest.mark.parametrize("name", build.SOURCES + ("block_math.cuh",
+                                                   "picture_layout.cuh"))
+def test_build_key_tracks_every_source_and_header(tmp_path, name):
+    """A stale library must never load: an edit to any source or shared
+    header changes the build key; other files do not."""
     import shutil
 
     csrc = tmp_path / "csrc"
     shutil.copytree(build.CSRC, csrc)
-    names = sorted(os.listdir(csrc))
-    assert "block_math.cuh" in names
-    assert {"fused_decode.cu", "recon.cu", "mc.cu"} <= set(names)
+    assert sorted(os.listdir(csrc)) == sorted(
+        build.SOURCES + ("block_math.cuh", "picture_layout.cuh"))
     key = build._key(str(csrc))
     assert key == build._key(build.CSRC)
     (csrc / "notes.txt").write_text("not compiled")
     assert build._key(str(csrc)) == key
-    for name in ("block_math.cuh", "mc.cu"):
-        path = csrc / name
-        orig = path.read_bytes()
-        path.write_bytes(orig + b"\n// edited\n")
-        assert build._key(str(csrc)) != key, name
-        path.write_bytes(orig)
-        assert build._key(str(csrc)) == key
-
-
-def test_build_keys_keep_the_first_designs_apart(tmp_path):
-    """An edit to a first design changes the key of the library of first
-    designs and not that of the kernels the decode runs; an edit to a
-    kernel the reverse; a header edit changes both."""
-    import shutil
-
-    csrc = tmp_path / "csrc"
-    shutil.copytree(build.CSRC, csrc)
-
-    def keys():
-        return tuple(build._key(str(csrc), sources)
-                     for sources in build.LIBRARIES.values())
-
-    before = keys()
-    assert before[0] != before[1]
-    for name, changed in (("mc_baseline.cu", (False, True)),
-                          ("recon.cu", (True, False)),
-                          ("picture_layout.cuh", (True, True))):
-        path = csrc / name
-        orig = path.read_bytes()
-        path.write_bytes(orig + b"\n// edited\n")
-        assert tuple(a != b for a, b in zip(keys(), before)) == changed, name
-        path.write_bytes(orig)
-    assert keys() == before
+    path = csrc / name
+    orig = path.read_bytes()
+    path.write_bytes(orig + b"\n// edited\n")
+    assert build._key(str(csrc)) != key, name
+    path.write_bytes(orig)
+    assert build._key(str(csrc)) == key
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    consts = make_constants(None, "cuda")
+@pytest.mark.parametrize("source", ["random", *torch_card.GOPS])
+def test_kernel_matches_plain_on_the_card(source):
+    """One launch a picture, every plane equal to the plain version's:
+    random planes and pictures, and every picture of the encoded GOPs of
+    ``tests/torch_card.py`` (the quirk where the entry lists it)."""
+    dev = torch_card.card()
+    if source != "random":
+        for i, frame, refs, consts, quirk in torch_card.pictures(source,
+                                                                 dev):
+            before = fused.launches
+            got = fused.decode_frame_planes_fused(frame, refs, consts, quirk)
+            want = decode_frame_planes(frame, refs, consts, quirk)
+            torch.cuda.synchronize()
+            assert fused.launches == before + 1
+            for g, w in zip(got, want, strict=True):
+                assert torch.equal(g, w), (i, quirk)
+        return
+    consts = make_constants(None, dev)
     for h, w, chroma, is_p, quirk in CASES + [(1088, 1920, False, 1, False),
                                               (544, 960, True, 1, False)]:
         c, ref = _plane_inputs(h, w, seed=h * w + is_p)
-        tc, tref = _on(c, ref, "cuda")
-        ip = torch.tensor(is_p, dtype=torch.int32, device="cuda")
+        tc, tref = _on(c, ref, dev)
+        ip = torch.tensor(is_p, dtype=torch.int32, device=dev)
         before = fused.launches
         got = fused.fused_decode_plane(tc, tref, ip, consts, chroma, quirk)
         want = decode_frame_plane(tc, tref, ip, consts, chroma, quirk)
@@ -311,10 +297,10 @@ def test_kernel_matches_plain_on_the_card():
         assert torch.equal(got, want), (h, w, chroma, is_p, quirk)
     # whole pictures: one launch each, every plane equal to the plain one
     for name, shapes in sorted(PICTURES.items()):
-        frame = {"is_p": torch.tensor(1, dtype=torch.int32, device="cuda")}
+        frame = {"is_p": torch.tensor(1, dtype=torch.int32, device=dev)}
         refs = []
         for key, (h, w) in zip(("y", "cb", "cr", "a"), shapes):
-            frame[key], ref = _on(*_plane_inputs(h, w, seed=h + w), "cuda")
+            frame[key], ref = _on(*_plane_inputs(h, w, seed=h + w), dev)
             refs.append(ref)
         before = fused.launches
         got = fused.decode_frame_planes_fused(frame, tuple(refs), consts)

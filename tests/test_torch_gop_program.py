@@ -14,12 +14,16 @@
   0.1 % of the pixels (an IDCT rounding tie flipped by jsvx's summation
   order, copied into the P frames that predict from it), and the two
   ``impl``s bit-equal;
-* on a card (``cuda``-marked): replay == eager == CPU on a small stream,
-  and the planes a sink keeps are still right after the run:
+* on a card (``cuda``-marked): replay == eager == CPU, captures and
+  replays counted, two threads at once, on a small stream and on the
+  streams of ``tests/torch_card.py``; the planes a sink keeps are still
+  right after the run:
   ``python -m pytest tests/test_torch_gop_program.py -m cuda --noconftest``.
 """
 
 import dataclasses
+import itertools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -47,6 +51,8 @@ from jsvx_torch.pipeline.wire import flatten_wire, wire_spec
 from jsvx_torch.runtime.profiler import Metrics
 from jsvx_torch.tools import EncoderConfig, JsvEncoder
 from jsvx_torch.tools.fixture import zoom_clip
+
+import torch_card
 
 torch.set_num_threads(1)
 needs_jax = pytest.mark.skipif(jnp is None, reason="needs jax")
@@ -446,39 +452,74 @@ def jax_tree(tree):
 # The card
 
 
-def _collect(data, device, impl, metrics=None, quirk=False):
-    kept = {}
-    ttr.transcode(data, lambda gi, outs: kept.__setitem__(gi, outs),
-                  device=device, impl=impl, quirk_oddify_zeros=quirk,
-                  metrics=metrics or Metrics())
-    return [s.cpu() for g in sorted(kept) for s in kept[g]]
+def _outcome(data, device, impl, quirk, metrics=None):
+    """``transcode`` of ``data``, planes read after the run: (GOPs
+    delivered, frames as numpy, the error's name or None)."""
+    kept, err = {}, None
+    try:
+        ttr.transcode(data, lambda gi, outs: kept.__setitem__(gi, outs),
+                      device=device, impl=impl, quirk_oddify_zeros=quirk,
+                      metrics=metrics or Metrics())
+    except ValueError as e:
+        err = type(e).__name__
+    frames = [tuple(s[i].cpu().numpy() for s in kept[g])
+              for g in sorted(kept) for i in range(kept[g][0].shape[0])]
+    return sorted(kept), frames, err
+
+
+def _same(a, b):
+    assert (a[0], a[2]) == (b[0], b[2])
+    torch_card.assert_frames_equal(a[1], b[1])
 
 
 @pytest.mark.cuda
-def test_replay_equals_eager_and_cpu_on_the_card(three_gops):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda", 0)
-    program.CACHE.clear()
-    for impl in ("fused", "two_kernel"):
-        for quirk in (False, True):
-            want = _collect(three_gops, "cpu", impl, quirk=quirk)
-            first, again = Metrics(), Metrics()
-            before = counters.snapshot()
-            eager = _collect(three_gops, dev, impl, first, quirk)
-            replay = _collect(three_gops, dev, impl, again, quirk)
-            torch.cuda.synchronize()
-            after = counters.snapshot()
-            moved = tuple(after[n] - before[n] for n in
-                          ("fused", "mc", "recon", "expand"))
-            keys = first.counters["gop_program.captures"]
-            assert 1 <= keys <= 3
-            assert first.counters["gop_program.replays"] == 3 - keys
-            assert again.counters["gop_program.captures"] == 0
-            assert again.counters["gop_program.replays"] == 3
-            n = 2 * 9
-            assert moved == ((n, 0, 0) if impl == "fused" else (0, n, n)) \
-                + ((0,) if quirk else (6,))
-            # the sink kept the planes as given; all still right
-            for a, b, c in zip(eager, replay, want):
-                assert torch.equal(a, c) and torch.equal(b, c)
+@pytest.mark.parametrize("label,quirk", [
+    ("three_gops", False), ("three_gops", True), ("1080p", False),
+    ("1080p", True), ("1080p-8-gops", False), ("1080p-varied", False),
+    ("1080p-damaged", False), ("48x64-dirty", False), ("yuva-128x96", False),
+    ("cif-352x288", False), ("320x320-256mv", False)])
+def test_replay_equals_eager_and_cpu_on_the_card(three_gops, monkeypatch,
+                                                 label, quirk):
+    """``transcode`` on both routes from a cold program cache (each key
+    captured at first sight), again (replays), on the eager loop and in
+    two threads at once: the CPU's outcome and planes, read after the run;
+    captures = the distinct keys asked for, replays = the GOPs dispatched
+    less the captures, the kernels' launch counts of the three runs
+    equal.  The damaged copies are ``torch_card.damaged`` of the
+    fixture."""
+    dev = torch_card.card()
+    if label == "three_gops":
+        streams = [three_gops]
+    elif label == "1080p-damaged":
+        streams = torch_card.damaged(torch_card.stream("1080p"))
+    else:
+        streams = [torch_card.stream(label)]
+    keys = torch_card.recording_keys(monkeypatch)
+    for data, impl in itertools.product(streams, ("fused", "two_kernel")):
+        want = _outcome(data, "cpu", impl, quirk)
+        program.CACHE.clear()
+        runs = []
+        for name in ("first", "again", "eager"):
+            m = Metrics()
+            with monkeypatch.context() as mp:
+                if name == "eager":
+                    mp.setattr(GopProgram, "run", torch_card.eager_run)
+                keys.clear()
+                out, n = torch_card.counted(
+                    lambda: _outcome(data, dev, impl, quirk, m))
+            _same(out, want)
+            runs.append((m.counters, m.timers.counts.get(
+                "device_dispatch", 0), len(set(keys)), n))
+        (c1, g1, k1, n1), (c2, g2, _, n2), (_, _, _, n3) = runs
+        recaptures = max(0, k1 - program.CACHE.capacity)
+        assert c1.get("gop_program.captures", 0) == k1, (impl, k1)
+        assert c1.get("gop_program.replays", 0) == g1 - k1
+        assert c2.get("gop_program.captures", 0) == recaptures
+        assert c2.get("gop_program.replays", 0) == g2 - recaptures
+        assert n1 == n2 == n3 and (sum(n1.values()) > 0) == (g1 > 0)
+        program.CACHE.clear()
+        with ThreadPoolExecutor(2) as pool:
+            both = list(pool.map(lambda _: _outcome(data, dev, impl, quirk),
+                                 range(2)))
+        for out in both:
+            _same(out, want)

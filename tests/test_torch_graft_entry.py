@@ -13,8 +13,9 @@
   1 LSB of jsvx's ``decode_gop_scan(..., mc_impl="mvset")`` on the same
   stream.  jsvx's own 8-device dry run is not run here.
 
-The ``cuda``-marked test runs ``entry()`` on a card, bit-equal to its
-plain version with one fused launch:
+The ``cuda``-marked tests run ``entry()`` on a card, bit-equal to its
+plain version and to the CPU with one fused launch, and
+``dryrun_multichip(8)`` with its ranks on the card:
 ``python -m pytest tests/test_torch_graft_entry.py -m cuda --noconftest``.
 """
 
@@ -25,8 +26,10 @@ import pytest
 import torch
 
 from jsvx_torch import graft_entry
-from jsvx_torch.kernels import counters
+from jsvx_torch.kernels.decode import decode_frame_planes
 from jsvx_torch.shard.launch import run_ranks
+
+import torch_card
 
 try:                                     # the card's machine has no JAX
     import jax
@@ -206,13 +209,39 @@ def test_a_failing_rank_raises_with_its_error(tmp_path):
 
 @pytest.mark.cuda
 def test_entry_on_the_card_is_its_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    """``entry()`` on the card: one fused launch, bit-equal to the plain
+    version on the same card tensors and to the CPU; and the same picture
+    from random reference planes (its vectors of up to 12 half-pels read
+    real taps), kernel against plain."""
+    dev = torch_card.card()
     fn, args = graft_entry.entry()
-    counters.reset()
-    got = fn(*args)
-    torch.cuda.synchronize()
-    assert counters.snapshot()["fused"] == 1
+    frame, refs, consts = args
+
+    def plain(refs):
+        return decode_frame_planes(frame, refs, consts)
+
+    gen = torch.Generator().manual_seed(12)
+    rand = tuple(torch.randint(0, 256, tuple(r.shape), generator=gen,
+                               dtype=torch.uint8).to(dev) for r in refs)
     cfn, cargs = graft_entry.entry(device="cpu")
-    for g, w in zip(got, cfn(*cargs), strict=True):
-        assert torch.equal(g.cpu(), w)
+    for refs_in, cpu in ((refs, cfn(*cargs)), (rand, None)):
+        got, n = torch_card.counted(lambda: fn(frame, refs_in, consts))
+        assert n == torch_card.want_counts(fused=1)
+        for i, (g, w) in enumerate(zip(got, plain(refs_in), strict=True)):
+            assert torch.equal(g, w)
+            assert cpu is None or torch.equal(g.cpu(), cpu[i])
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_8_on_the_card(tmp_path):
+    """``dryrun_multichip(8)``: eight gloo ranks sharing the card pass its
+    own checks, each rank's bands through the MC and reconstruction
+    kernels once a picture and the caller's GOP through the fused kernel
+    once a picture."""
+    torch_card.card()
+    rep = graft_entry.dryrun_multichip(8, workdir=str(tmp_path))
+    assert len(rep["ranks"]) == 8 and rep["max_abs_diff"] <= 1
+    for r in rep["ranks"]:
+        assert torch_card.want_counts(**r["launches"]) == \
+            torch_card.want_counts(mc=3, recon=3), r["rank"]
+    assert rep["fused_launches"] == 3

@@ -21,7 +21,9 @@ decode) and ``decode_gops_parallel``.
   eager decode runs in its place;
 * ``decode_gops_parallel`` through its program against the eager per-GOP
   loop and jsvx's ``decode_gops_parallel`` on a CPU mesh;
-* on a card (``cuda``-marked): replay == eager == CPU:
+* on a card (``cuda``-marked): replay == eager == CPU, captures and
+  replays counted, on a small stream and the streams of
+  ``tests/torch_card.py``, the Player with RGB among the paths:
   ``python -m pytest tests/test_torch_group_program.py -m cuda
   --noconftest``.
 """
@@ -49,7 +51,6 @@ import jsvx_torch.pipeline.stream as stream_mod
 import jsvx_torch.pipeline.transcode as ttr
 import jsvx_torch.shard.gop_parallel as gp_mod
 from jsvx_torch.api import Decoder, PlayerConfig
-from jsvx_torch.kernels import counters
 from jsvx_torch.kernels.decode import frame_to_device, make_constants
 from jsvx_torch.pipeline import program
 from jsvx_torch.pipeline.gop import (decode_gop, frame_at, frame_decoder,
@@ -65,6 +66,8 @@ from jsvx_torch.shard import build_mesh, decode_gops_parallel
 from jsvx_torch.shard.slice_rows import cut_band, gop_at, stack_gops
 from jsvx_torch.tools import EncoderConfig, JsvEncoder
 from jsvx_torch.tools.fixture import zoom_clip
+
+import torch_card
 
 torch.set_num_threads(1)
 needs_jax = pytest.mark.skipif(jax is None, reason="needs jax")
@@ -468,11 +471,15 @@ def test_a_failing_program_raises_and_nothing_replaces_it(yuv, cache,
 # decode_gops_parallel
 
 
-def _batch(data, n_gops=2):
+def _batch(data):
+    """The stream's GOPs of GOP 0's length, packed and stacked on a GOP
+    axis (numpy), with what ``decode_gops_parallel`` takes besides."""
     d = StreamDecoder(data, device="cpu")
     fts = d.parse_all()
     seq = d.parser.seq
-    gops = [fts[4 * g:4 * g + 4] for g in range(n_gops)]
+    starts = [i for i, ft in enumerate(fts) if ft.is_intra_picture]
+    n = starts[1] if len(starts) > 1 else len(fts)
+    gops = [fts[a:a + n] for a in starts if len(fts[a:a + n]) == n]
     port = [stack_device_frames([frame_to_device(ft) for ft in g])
             for g in gops]
     batch = {k: ({f: np.stack([g[k][f] for g in port]) for f in v}
@@ -546,73 +553,89 @@ def test_gops_parallel_takes_tensors(yuv, cache):
 # The card
 
 
-def _eager_run(self, copied, metrics):
-    """``GopProgram.run`` without its graph: the body on every call."""
-    if copied is not None:
-        torch.cuda.current_stream(self.device).wait_event(copied)
-    outs = self.body()
-    self.consumed = program._record(self.device)
-    self.loaded = False
-    return outs, self.consumed
-
-
 @pytest.mark.cuda
+@pytest.mark.parametrize("label,quirk", [
+    ("48x64", False), ("1080p", False), ("1080p", True),
+    ("yuva-128x96", False), ("cif-352x288", False), ("48x64-dirty", False)])
 def test_group_programs_replay_equals_eager_and_cpu_on_the_card(
-        monkeypatch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda", 0)
-    data = _encode(zoom_clip(48, 64, 10, seed=3), gop_size=4,
-                   quantizer_scale=5, me_range=4, half_pel_refine=True)
+        monkeypatch, label, quirk):
+    """Every ``decode_group`` path (``StreamDecoder`` by GOP and by picture
+    on both routes, the Decoder's GOP batch and picture path, the Player
+    with RGB) and ``decode_gops_parallel`` on a mesh of one rank, on the
+    card from a cold program cache, again and on the eager loop: the
+    CPU's planes; captures = the distinct keys asked for, replays = the
+    units less the first sights and then every unit; in each card run
+    each picture through its route's kernels once (and each frame shown
+    through the colour kernel once), nothing else counted."""
+    dev = torch_card.card()
+    data = (_encode(zoom_clip(48, 64, 10, seed=3), gop_size=4,
+                    quantizer_scale=5, me_range=4, half_pel_refine=True)
+            if label == "48x64" else torch_card.stream(label))
+    keys = torch_card.recording_keys(monkeypatch)
 
-    def runs(fn):
-        """``fn(device, metrics)`` on the CPU, on the card twice (first
-        sights captured, then replays) and on the card's eager route."""
-        program.CACHE.clear()
+    def runs(fn, kernels, n_frames=None):
+        """``fn(device, metrics)`` on the CPU, then on the card, where
+        each of ``kernels`` runs once a picture (``n_frames`` of them,
+        the CPU's frames unless given)."""
         cpu = fn("cpu", Metrics())
-        first, again = Metrics(), Metrics()
-        card = [fn(dev, first), fn(dev, again)]
-        with monkeypatch.context() as m:
-            m.setattr(GopProgram, "run", _eager_run)
-            card.append(fn(dev, Metrics()))
-        for got in card:
+        program.CACHE.clear()
+        card = []
+        for name in ("first", "again", "eager"):
+            m = Metrics()
+            keys.clear()
+            with monkeypatch.context() as mp:
+                if name == "eager":
+                    mp.setattr(GopProgram, "run", torch_card.eager_run)
+                got, n = torch_card.counted(lambda: fn(dev, m))
             _equal(got, cpu)
-        c1, c2 = first.counters, again.counters
-        assert c1["gop_program.captures"] >= 1
+            card.append((m.counters, len(keys), len(set(keys)), n))
+        (c1, u1, k1, n1), (c2, u2, _, n2), (_, _, _, n3) = card
+        assert k1 > 0 and c1.get("gop_program.captures", 0) == k1
+        assert c1.get("gop_program.replays", 0) == u1 - k1
         assert c2.get("gop_program.captures", 0) == 0
-        assert c2["gop_program.replays"] == c1["gop_program.captures"] + \
-            c1.get("gop_program.replays", 0)
+        assert c2.get("gop_program.replays", 0) == u2
+        n = len(cpu) if n_frames is None else n_frames
+        want = torch_card.want_counts(**dict.fromkeys(kernels, n))
+        assert n1 == n2 == n3 == want, (n1, want)
 
     def stream_decoder(scan, impl):
         def fn(device, m):
-            res = StreamDecoder(data, device=device).decode(
+            res = StreamDecoder(data, quirk, device=device).decode(
                 use_gop_scan=scan, impl=impl, metrics=m)
             return _np([tuple(p.cpu() for p in f) for f in res.frames])
         return fn
 
     def decoder(scan):
         def fn(device, m):
-            d = Decoder(PlayerConfig(use_gop_scan=scan), device=device)
+            d = Decoder(PlayerConfig(use_gop_scan=scan,
+                                     quirk_oddify_zeros=quirk),
+                        device=device)
             d.metrics = m
             d.feed(0, data, total=len(data))
             return _np([tuple(p.cpu() for p in f.planes)
                         for f in d.iter_frames()])
         return fn
 
+    def player(device, m):
+        _, rgb, planes, p = torch_card.play_rgb(data, device, quirk)
+        for k, v in p.decoder.metrics.counters.items():
+            m.count(k, v)
+        return [f + (x,) for f, x in zip(planes, rgb, strict=True)]
+
     def gops_parallel(device, m):
         t = _batch(data)
-        outs, final, _ = decode_gops_parallel(
+        outs, final, gops = decode_gops_parallel(
             t["batch"], t["h"], t["w"], make_constants(t["seq"], device),
-            build_mesh({"gop": 1}), device=device, metrics=m)
-        return _np([tuple(o[g].cpu() for o in outs) for g in range(2)]
+            build_mesh({"gop": 1}), quirk_oddify_zeros=quirk, device=device,
+            metrics=m)
+        return _np([tuple(o[g].cpu() for o in outs) for g in range(len(gops))]
                    + [tuple(f.cpu() for f in final)])
 
-    before = counters.snapshot()
     for scan in (True, False):
         for impl in IMPLS:
-            runs(stream_decoder(scan, impl))
-        runs(decoder(scan))
-    runs(gops_parallel)
-    torch.cuda.synchronize()
-    assert counters.snapshot()["fused"] > before["fused"]
+            runs(stream_decoder(scan, impl),
+                 ("fused",) if impl == "fused" else ("mc", "recon"))
+        runs(decoder(scan), ("fused",))
+    runs(player, ("fused", "color"))
+    runs(gops_parallel, ("fused",), sum(map(len, _batch(data)["gops"])))
     assert not any(p.loaded for p in program.CACHE.programs())

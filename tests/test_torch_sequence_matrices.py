@@ -19,9 +19,10 @@ and its entry points are pinned here as strict ``xfail``s.  A stream
 whose headers all carry one pair of matrices still builds one constants
 set and one program key.
 
-The ``cuda``-marked test runs the same entry points on a card against
-the CPU: ``python -m pytest tests/test_torch_sequence_matrices.py -m cuda
---noconftest``.
+The ``cuda``-marked tests run the same entry points, and the Decoder's
+seek into GOP 1, on a card against the CPU and the oracle, with the
+kernels and the program captures counted: ``python -m pytest
+tests/test_torch_sequence_matrices.py -m cuda --noconftest``.
 """
 
 import numpy as np
@@ -37,9 +38,12 @@ from jsvx_torch.pipeline.packed_parse import walk_stream, walk_stream_seqs
 from jsvx_torch.pipeline.program import ProgramCache, ProgramSet
 from jsvx_torch.pipeline.stream import StreamDecoder
 from jsvx_torch.pipeline.transcode import transcode
+from jsvx_torch.runtime.profiler import Metrics
 from jsvx_torch.tools import fixture
 from jsvx_torch.tools.encoder import EncoderConfig, JsvEncoder
 from jsvx_torch.tools.refmath import ycbcr_to_rgb as ref_rgb
+
+import torch_card
 
 try:                                     # the card's machine has no JAX
     import jax
@@ -362,31 +366,96 @@ def test_jsvx_decoder_per_gop_matrices(streams, oracle, km, scan):
 # On a card
 
 
+#: the device entry points of the card's test: (path, impl, quirk)
+CARD_PATHS = ([("transcode", i, q) for i in IMPLS for q in (False, True)]
+              + [(p, i, False) for p in ("stream_scan", "stream_picture")
+                 for i in IMPLS]
+              + [(p, "fused", False) for p in ("decoder_gop_batch",
+                                               "decoder_picture",
+                                               "player_rgb")])
+
+
+def _card_path(path, impl, quirk, data, device, m):
+    """``data`` through ``path`` on ``device``, counted in ``m``: its
+    frames as numpy (the Player's: each shown frame's planes and RGB)."""
+    if path == "transcode":
+        return _transcode(data, impl, quirk, device=device, metrics=m)
+    if path.startswith("stream"):
+        res = StreamDecoder(data, device=device).decode(
+            use_gop_scan=path == "stream_scan", impl=impl, metrics=m)
+        return [tuple(_host(p) for p in f) for f in res.frames]
+    if path == "player_rgb":
+        _, rgb, planes, p = torch_card.play_rgb(data, device)
+        d, frames = p.decoder, [f + (x,) for f, x in zip(planes, rgb,
+                                                          strict=True)]
+    else:
+        d, out = _decoder(data, path == "decoder_gop_batch", device=device)
+        frames = [tuple(_host(p) for p in f.planes) for f in out]
+    for k, v in d.metrics.counters.items():
+        m.count(k, v)
+    return frames
+
+
 @pytest.mark.cuda
-def test_per_gop_matrices_on_the_card_equal_the_cpu():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda", 0)
-    program_mod.CACHE.clear()
-
-    def cpu_frames(frames):
-        return [tuple(p.cpu().numpy() for p in f) for f in frames]
-
-    paths = {
-        "transcode": lambda data, d, impl: _transcode(data, impl, False,
-                                                      device=d),
-        "stream_scan": lambda data, d, impl: cpu_frames(StreamDecoder(
-            data, device=d).decode(impl=impl).frames),
-        "stream_picture": lambda data, d, impl: cpu_frames(StreamDecoder(
-            data, device=d).decode(use_gop_scan=False, impl=impl).frames),
-        "decoder": lambda data, d, impl: cpu_frames(
-            f.planes for f in _decoder(data, True, device=d)[1]),
-    }
+@pytest.mark.parametrize("path,impl,quirk", CARD_PATHS,
+                         ids=["-".join(map(str, p)) for p in CARD_PATHS])
+def test_per_gop_matrices_on_the_card_equal_the_cpu(monkeypatch, path, impl,
+                                                    quirk):
+    """The switch stream, with and without the key map, through each
+    device entry point on the card from a cold program cache: per GOP
+    within 1 LSB of the float64 oracle and bit-equal to the same call on
+    the CPU (the Player's RGB within 1 LSB of ``refmath`` on the oracle's
+    planes); each picture through its route's kernels once; captures =
+    the distinct (layout, matrices) keys asked for, with both sets of
+    matrices among them."""
+    dev = torch_card.card()
+    keys = torch_card.recording_keys(monkeypatch)
+    launches = dict(fused=6) if impl == "fused" else dict(mc=6, recon=6)
+    if path == "transcode":
+        launches["expand"] = 0 if quirk else 2
+    if path == "player_rgb":
+        launches["color"] = 6
     for km in (False, True):
         data = fixture.switch_stream(km)
-        want = _oracle(data)
-        for name, run in paths.items():
-            for impl in IMPLS:
-                card, cpu = run(data, dev, impl), run(data, "cpu", impl)
-                _within_1lsb(card, want)
-                assert _per_gop(card, cpu) == [(0, 0), (0, 0)], name
+        want = _oracle(data, quirk)
+        program_mod.CACHE.clear()
+        keys.clear()
+        m = Metrics()
+        card, n = torch_card.counted(
+            lambda: _card_path(path, impl, quirk, data, dev, m))
+        asked = set(keys)
+        cpu = _card_path(path, impl, quirk, data, "cpu", Metrics())
+        _within_1lsb([f[:3] for f in card], want)
+        assert _per_gop(card, cpu) == [(0, 0), (0, 0)], km
+        assert n == torch_card.want_counts(**launches), km
+        assert m.counters.get("gop_program.captures", 0) == len(asked) > 0
+        assert len({k.quant for k in asked}) == 2
+        if path == "player_rgb":
+            for f, o in zip(card, want, strict=True):
+                x = f[-1]
+                ref = ref_rgb(*o)[:x.shape[0], :x.shape[1]]
+                assert np.abs(x.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", [True, False], ids=["gop-batch", "picture"])
+def test_decoder_seek_into_gop_1_on_the_card_equals_the_cpu(streams, oracle,
+                                                             scan):
+    """Once the first picture is out, a seek into GOP 1 (the other
+    matrices) on the card: GOP 1 within 1 LSB of the oracle and bit-equal
+    to the CPU, the fused kernel once a picture decoded."""
+    dev = torch_card.card()
+
+    def seek(device):
+        d = Decoder(PlayerConfig(use_gop_scan=scan), device=device)
+        d.feed(0, streams[True], total=len(streams[True]))
+        assert d.decode_frame() is not None
+        assert d.seek(150.0)
+        return [tuple(_host(p) for p in f.planes) for f in d.iter_frames()]
+
+    got, n = torch_card.counted(lambda: seek(dev))
+    cpu = seek("cpu")
+    assert n == torch_card.want_counts(fused=GOP + (GOP if scan else 1))
+    _within_1lsb(oracle[True][:GOP] + got, oracle[True])
+    assert _per_gop(oracle[True][:GOP] + got,
+                    oracle[True][:GOP] + cpu)[1] == (0, 0)

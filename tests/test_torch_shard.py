@@ -17,22 +17,32 @@ Tolerances:
 * against jsvx's sharded decode: <= 1 LSB on <= 0.1 % of pixels (the f32
   IDCT's summation order differs between the packages; ROADMAP C).
 
-On the CPU the wrappers run their plain versions; the CUDA kernels on the
-band route are checked on the card by ``chip_smoke.py``'s shard phase.
+On the CPU the wrappers run their plain versions.  On a card
+(``cuda``-marked), the same decodes run through the kernels, in one
+process and in four gloo ranks and one NCCL rank sharing the card (rank
+bodies: ``torch_shard_worker.card_checks``).
 """
 
+import json
 import pickle
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from jsvx.kernels import decode as jdec
-from jsvx.pipeline.gop import stack_device_frames as j_stack
-from jsvx.shard import build_mesh as j_build_mesh
-from jsvx.shard import decode_gop_rows_sharded as j_rows_sharded
-from jsvx.shard import slice_rows as j_slice_rows
+try:                                     # the card's machine has no JAX
+    import jax
+
+    from jsvx.kernels import decode as jdec
+    from jsvx.pipeline.gop import stack_device_frames as j_stack
+    from jsvx.shard import build_mesh as j_build_mesh
+    from jsvx.shard import decode_gop_rows_sharded as j_rows_sharded
+    from jsvx.shard import slice_rows as j_slice_rows
+
+    from conftest import synthetic_frames, synthetic_frames_yuva
+except ImportError:
+    jax = None
+
 from jsvx.tools.encoder import EncoderConfig, JsvEncoder
 from jsvx_torch.kernels.decode import frame_to_device, make_constants
 from jsvx_torch.pipeline.gop import (decode_gop, frame_at,
@@ -44,7 +54,7 @@ from jsvx_torch.shard import slice_rows
 from jsvx_torch.shard.launch import run_ranks
 from jsvx_torch.tools.synthetic import synthetic_gop
 
-from conftest import synthetic_frames, synthetic_frames_yuva
+import torch_card
 
 torch.set_num_threads(1)
 
@@ -467,3 +477,31 @@ def test_1080p_four_bands_equal_the_whole_plane(case):
         refs = tuple(torch.cat([p[c] for p in parts]) for c in range(3))
         for c in range(3):
             assert torch.equal(refs[c], whole[c][i]), (case, i, c)
+
+
+# ---------------------------------------------------------------------------
+# The card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("gloo", 4), ("nccl", 1)])
+def test_shards_on_the_card_equal_the_plain_decode(backend, world,
+                                                   tmp_path):
+    """``torch_shard_worker.card_checks`` on the 1080p fixture: in this
+    process (a mesh of one rank, no process group), then in ``world``
+    ranks sharing the card (NCCL needs a card per rank, so it runs one);
+    a failing check fails its rank, and the rank's error this test."""
+    from jsvx_torch.kernels import build
+    from torch_shard_worker import card_checks
+
+    dev = torch_card.card()
+    build.load()                         # the ranks only load the kernels
+    data = torch_card.stream("1080p")
+    card_checks(data, 1, dev)
+    path = tmp_path / "1080p.jsv"
+    path.write_bytes(data)
+    outs = run_ranks("torch_shard_worker:card_rank", world, str(tmp_path),
+                     str(path), str(dev), backend=backend, timeout_s=420,
+                     group_timeout_s=120, path=[TESTS])
+    assert [json.loads(o.strip().splitlines()[-1]) for o in outs] == [
+        {"rank": r, "backend": backend} for r in range(world)]

@@ -223,17 +223,18 @@ def test_device_trace_merges_the_spans_into_its_trace(stream, tmp_path):
                          )["args"]
 
 
-def test_chip_smokes_stage_timer_runs_transcode_and_logs_its_stages(stream):
-    """``chip_smoke.py``'s ``StageWatch``, a ``StageTimer`` subclass that
-    overrides ``stage``, runs ``transcode`` on both routes, untraced and
-    traced, and passes the stages' attrs and span through."""
-    import chip_smoke
+def test_card_tests_stage_timer_runs_transcode_and_logs_its_stages(stream):
+    """``tests/torch_card.py``'s ``StageWatch``, the ``StageTimer``
+    subclass the card's tests watch ``transcode`` with, which overrides
+    ``stage``, runs ``transcode`` on both routes, untraced and traced,
+    and passes the stages' attrs and span through."""
+    import torch_card
     dev = torch.device("cpu")
     for quirk in (False, True):
-        out = chip_smoke.watched_transcode(stream, dev, quirk=quirk)
+        out = torch_card.watched_transcode(stream, dev, quirk=quirk)
         assert out["res"].n_gops == 3 and len(out["frames"]) == 9
         got, dropped, _, traced = _traced(
-            lambda q=quirk: chip_smoke.watched_transcode(stream, dev,
+            lambda q=quirk: torch_card.watched_transcode(stream, dev,
                                                           quirk=q))
         assert dropped == 0 and len(traced["frames"]) == 9
         for a, b in zip(out["frames"], traced["frames"]):
@@ -241,7 +242,7 @@ def test_chip_smokes_stage_timer_runs_transcode_and_logs_its_stages(stream):
         for stage in ("parse", "device_dispatch", "device_wait", "sink"):
             assert sorted(e[4]["gop"] for e in _named(got, stage)
                           if "gop" in e[4]) == [0, 1, 2], stage
-    timer = chip_smoke.StageWatch([])
+    timer = torch_card.StageWatch([])
     got, _, _, _ = _traced(lambda: _set_in_stage(timer))
     assert _named(got, "parse")[0][4] == {"gop": 4, "wire": "dense"}
     assert timer.spans == [("parse", 0, 0)] and timer.counts["parse"] == 1

@@ -17,7 +17,8 @@ versions.  Tolerances:
   the two-kernel route is bit-equal to the fused route.
 
 The kernels themselves (CUDA C++ for sm_90a) run only on a card, in the
-``cuda``-marked test and in ``chip_smoke.py``:
+``cuda``-marked test (random planes and pictures, the MC edge cases, the
+encoded GOPs of ``tests/torch_card.py``):
 ``python -m pytest tests/test_torch_two_kernel.py -m cuda --noconftest``.
 """
 
@@ -43,6 +44,7 @@ from jsvx_torch.kernels.carry import (constants_from_jax, frame_from_jax,
                                       refs_from_numpy)
 from jsvx_torch.kernels.fused import decode_frame_planes_fused
 
+import torch_card
 from test_torch_fused import PICTURES, _on, _plane_inputs
 
 torch.set_num_threads(1)
@@ -637,11 +639,69 @@ def test_picture_wrappers_reject_other_devices():
 # (i) the kernels on the card
 
 
+#: the MC cases of tests/test_fast_paths.py: (plane shape, the vectors)
+MC_EDGES = {"mc_tall_pad": ((24, 128), [[0, 0], [141, 3], [-140, -95]]),
+            "mc_clamp": ((32, 32), [[0, 0], [-13, -9], [15, 21]])}
+
+
+def _mc_edge_case(name, dev):
+    """The MC kernel against its plain version on a plane with vectors
+    far past its edge (the tall-pad case) or out of the picture (the
+    clamp case): luma and chroma one-plane launches, and the plane as Y,
+    Cb and Cr of one picture launch."""
+    (h, w), vectors = MC_EDGES[name]
+    rng = np.random.default_rng(1234)
+    ref = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8))
+    idx = rng.integers(0, len(vectors), (h // 8, w // 8))
+    mv = torch.from_numpy(np.array(vectors, np.int16)[idx])
+    rep = torch.from_numpy((rng.random((h // 8, w // 8)) < 0.2)
+                           .astype(np.uint8))
+    ref, mv, rep = ref.to(dev), mv.to(dev), rep.to(dev)
+    before = mc.launches
+    picture = mc.predict_picture_mc(
+        {k: {"mv": mv, "rep_add": rep} for k in ("y", "cb", "cr")},
+        (ref, ref, ref))
+    for chroma in (False, True):
+        got = mc.predict_plane_mc(ref, mv, rep, chroma)
+        want = tdec.predict_plane(ref, mv, rep, chroma).to(torch.int16)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), chroma
+        for p in picture[1:] if chroma else picture[:1]:
+            assert torch.equal(p, want), chroma
+    assert mc.launches == before + 3
+
+
+def _encoded_gop(name, dev):
+    """Every picture of an encoded GOP (``tests/torch_card.py``): one MC
+    and one reconstruction launch each, equal to the plain versions and
+    to the plain decode (the fused route's plain version)."""
+    for i, frame, refs, consts, quirk in torch_card.pictures(name, dev):
+        mc0, rc0 = mc.launches, recon.launches
+        preds = mc.predict_picture_mc(frame, refs)
+        got = recon.recon_picture(frame, preds, frame["is_p"], consts, quirk)
+        route = tdec.decode_frame_planes(frame, refs, consts, quirk)
+        torch.cuda.synchronize()
+        assert (mc.launches, recon.launches) == (mc0 + 1, rc0 + 1)
+        for ci, key in enumerate(tdec.frame_comp_keys(frame)):
+            c = frame[key]
+            want_pred = tdec.predict_plane(refs[ci], c["mv"], c["rep_add"],
+                                           tdec.comp_is_chroma(ci)) \
+                .to(torch.int16)
+            want = recon.recon_plane_blocks(c, want_pred, frame["is_p"],
+                                            consts, quirk)
+            assert torch.equal(preds[ci], want_pred), (i, key)
+            assert torch.equal(got[ci], want), (i, key, quirk)
+            assert torch.equal(got[ci], route[ci]), (i, key, quirk)
+
+
 @pytest.mark.cuda
-def test_kernels_match_plain_on_the_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    dev = torch.device("cuda")
+@pytest.mark.parametrize("source", ["random", *MC_EDGES, *torch_card.GOPS])
+def test_kernels_match_plain_on_the_card(source):
+    dev = torch_card.card()
+    if source in MC_EDGES:
+        return _mc_edge_case(source, dev)
+    if source in torch_card.GOPS:
+        return _encoded_gop(source, dev)
     consts = tdec.make_constants(None, dev)
     for h, w, chroma in ((48, 64, False), (24, 40, True), (1088, 1920, False),
                          (544, 960, True)):
