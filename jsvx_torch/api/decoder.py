@@ -16,15 +16,23 @@ oracle on the host.  On the torch backend:
 * ``_reconstruct`` (one picture): the picture is packed, copied to
   ``device`` as one wire and decoded by the fused decode kernel, one
   launch per picture, from the carried reference planes;
-* ``_decode_gop_batch`` (a fully buffered key-map GOP): every picture of
-  the GOP is parsed, the GOP goes to ``device`` as one dense wire and
-  through the GOP loop; the first frame returns and the rest queue.
+* ``_decode_gop_batch`` (a fully buffered key-map GOP): the GOP's bytes
+  are read from the buffer once, its headers parsed, and its pictures
+  parsed serially into the compact wire (the coded coefficients, as
+  ``transcode`` ships them), which goes to ``device`` as one wire and
+  through the GOP program that expands it and runs the GOP loop
+  (:func:`jsvx_torch.pipeline.stream.decode_compact_group`); the first
+  frame returns and the rest queue.  The batch goes as dense planes
+  instead (:func:`jsvx_torch.pipeline.stream.decode_group`) with the
+  oddify-zeros quirk, without the C++ parser, or for a GOP whose blocks
+  come out of order (``dirty``), which is parsed again dense.
 
-Both go through :func:`jsvx_torch.pipeline.stream.decode_group`, so
-through a GOP program (:mod:`jsvx_torch.pipeline.program`: the picture's
-or the GOP's, a CUDA graph replayed on a card), checked out of the
-process's cache for that call only: a Decoder that is dropped or seeks
-holds none.
+Either way the decode goes through a GOP program
+(:mod:`jsvx_torch.pipeline.program`: the picture's or the GOP's, a CUDA
+graph replayed on a card), checked out of the process's cache for that
+call only: a Decoder that is dropped or seeks holds none.  The compact
+wire's entry buckets are the Decoder's and only grow, so a stream's
+batches keep one or two program keys.
 ``DecodedFrame.planes`` are uint8 tensors on ``device`` (numpy arrays on
 the oracle backend).
 
@@ -42,13 +50,18 @@ import torch
 from ..bitstream.bitio import BitReader, BitStallError
 from ..bitstream.container import (ContainerMeta, StartCodeIndex,
                                    parse_container_header)
-from ..bitstream.parser import FrameTensors, StreamParser
+from ..bitstream.parser import (FrameTensors, StreamParser,
+                                alloc_frame_tensors)
 from ..bitstream.ranges import RangeBuffer
 from ..coding import tables as T
 from ..kernels.decode import make_constants, quant_key
 from ..pipeline.gop import zero_refs
-from ..pipeline.packed_parse import BufferPool
-from ..pipeline.stream import decode_group
+from ..pipeline.packed_parse import (BufferPool, CompactGop,
+                                     parse_gop_compact, start_gop_compact)
+from ..pipeline.parallel_parse import (_parse_picture_header, _picture_end,
+                                       _picture_stops)
+from ..pipeline.parse_pool import Lane
+from ..pipeline.stream import decode_compact_group, decode_group
 from ..runtime.profiler import Metrics, span
 from .config import PlayerConfig
 from .events import EventDispatcher
@@ -74,17 +87,39 @@ class DecodedFrame:
         return self.picture_type == T.PICTURE_TYPE_I
 
 
+class _PictureSpans(Lane):
+    """The Decoder's lane of the compact parse: serial, on the calling
+    thread, each picture's parse a ``picture_parse`` span."""
+
+    def __init__(self, decoder: "Decoder"):
+        super().__init__(1)
+        self.decoder = decoder
+
+    def submit(self, fn, sizes: list):
+        dec = self.decoder
+
+        def one(i):
+            with span("picture_parse", picture=dec._pictures):
+                dec._pictures += 1
+                fn(i)
+
+        return super().submit(one, sizes)
+
+
 class Decoder(EventDispatcher):
     """The streaming Decoder, reconstructing on ``device``.
 
     ``metrics`` holds the torch backend's stages: ``parse`` (the GOP
-    batch's picture parse), ``pack``, ``h2d`` and ``device_decode``; the
-    buffer's counters ``scanned_bytes`` and ``copied_bytes``
-    (:class:`RangeBuffer`); and on a card the counters
-    ``gop_program.captures`` and ``.replays``.  While a profiler records,
-    the span log also gets each start-code ``scan`` (in ``feed``: the
-    buffer indexes the bytes each chunk brings), each ``buffer_copy`` of
-    the bytes a reader reads and each ``picture_parse``.
+    batch's headers and picture parse; its span's ``wire`` attribute is
+    the batch's wire, ``compact`` or ``dense``), ``pack``, ``h2d`` and
+    ``device_decode``; the counters ``decoder.gop_batches.compact`` and
+    ``.dense`` (the GOP batches on each wire); the buffer's counters
+    ``scanned_bytes`` and ``copied_bytes`` (:class:`RangeBuffer`); and on
+    a card the counters ``gop_program.captures`` and ``.replays``.  While
+    a profiler records, the span log also gets each start-code ``scan``
+    (in ``feed``: the buffer indexes the bytes each chunk brings), each
+    ``buffer_copy`` of the bytes a reader reads and each
+    ``picture_parse``.
     """
 
     def __init__(self, config: PlayerConfig | None = None,
@@ -107,6 +142,7 @@ class Decoder(EventDispatcher):
         self._consts = None
         self._pending: list[DecodedFrame] = []   # GOP-batch output queue
         self._pictures = 0                # pictures parsed, for the spans
+        self._buckets: dict = {}          # the compact wire's, sticky
 
     # ------------------------------------------------------------------
     # Ingest
@@ -296,18 +332,110 @@ class Decoder(EventDispatcher):
         batch; the first frame returns, the rest queue in ``_pending``.
         Any surprise stall ends the parse early (the pictures parsed so far
         still decode), and with none parsed the caller falls back to the
-        picture-at-a-time loop."""
-        with self.metrics.timers.stage("parse", start=span[0]):
-            fts = self._parse_span(span[1])
-        if not fts:
+        picture-at-a-time loop.  The batch ships the compact wire where
+        :meth:`_compact_route` allows and the GOP's parse is not
+        ``dirty``, else the dense wire."""
+        compact = self._compact_route()
+        with self.metrics.timers.stage(
+                "parse", start=span[0],
+                wire="compact" if compact else "dense") as s:
+            if compact:
+                hdrs, gop, fts = self._parse_span_compact(*span)
+                if gop is None and fts:
+                    s.set(wire="dense")
+            else:
+                fts = self._parse_span(span[1])
+                hdrs, gop = fts, None
+        if not hdrs:
             return None
-        planes = self._decode(fts, use_gop_scan=True)
-        frames = [DecodedFrame(planes=p, picture_type=ft.picture_type,
-                               ts_ms=ft.gop_time_ms)
-                  for p, ft in zip(planes, fts)]
+        if gop is not None:
+            planes = self._decode_compact(gop)
+        else:
+            planes = self._decode(fts, use_gop_scan=True)
+        self.metrics.count("decoder.gop_batches."
+                           + ("compact" if gop is not None else "dense"))
+        frames = [DecodedFrame(planes=p, picture_type=h.picture_type,
+                               ts_ms=h.gop_time_ms)
+                  for p, h in zip(planes, hdrs)]
         self._pending = frames[1:]
         self.emit("frame", frames[0])
         return frames[0]
+
+    def _compact_route(self) -> bool:
+        """Whether a GOP batch goes on the compact wire: not with the
+        oddify-zeros quirk, which changes positions the compact wire does
+        not carry, and only with the C++ parser, the one that writes it."""
+        return (not self.config.quirk_oddify_zeros
+                and self.parser._native is not None)
+
+    def _parse_span_compact(self, start: int, end: int) -> tuple:
+        """The span [``start``, ``end``) of a buffered GOP: its headers by
+        the Decoder's parser (as :meth:`_parse_span`), each picture's
+        header only, then its pictures in one compact parse of the span's
+        bytes, read once -> (the pictures' headers, their
+        :class:`CompactGop`, None); a GOP the compact wire cannot express
+        (``dirty``) is parsed again into dense pictures -> (headers, None,
+        FrameTensors)."""
+        _, _, index = self._view_and_index()
+        entries = index.entries
+        lo, hi = np.searchsorted(entries[:, 0], [start, end])
+        index = StartCodeIndex(entries[lo:hi])
+        stops = _picture_stops(index)
+        data = self.buffer.read(start, end + 4)   # + the next start code
+        r = BitReader(data, base=start)
+        group, pos = [], start
+        try:
+            while (nxt := index.next_code(pos)) is not None:
+                off, code = nxt
+                r.seek_bits((off + 4) << 3)
+                if code == T.START_SEQUENCE:
+                    self._on_sequence(self.parser.parse_sequence_header(r))
+                    pos = r.byte_pos
+                elif code == T.START_GOP:
+                    self.current_time_ms = self.parser.parse_gop_header(r)
+                    pos = r.byte_pos
+                elif code == T.START_PICTURE:
+                    hdr, bit = _parse_picture_header(self.parser, r)
+                    pos = r.byte_pos
+                    if hdr is not None:
+                        group.append((hdr, bit - (start << 3)))
+                        pos = _picture_end(stops, pos, end)
+                else:
+                    pos = off + 4
+            pos = end
+        except BitStallError as e:
+            self.emit("stalled", e.needed_byte)
+            pos = off
+        self.buffer.advance_to(pos)
+        hdrs = [h for h, _ in group]
+        if not group:
+            return hdrs, None, []
+        arr = np.frombuffer(data, dtype=np.uint8)
+        seq = self.parser.seq
+        gop = parse_gop_compact(
+            arr, group, seq, self.meta, self._pool, self._buckets,
+            started=start_gop_compact(arr, group, seq, self.meta,
+                                      self._pool, _PictureSpans(self)))
+        if not gop.dirty:
+            return hdrs, gop, None
+        for buf in gop.pooled:
+            self._pool.release(buf)
+        return hdrs, None, [self._parse_dense(arr, h, bit, seq)
+                            for h, bit in group]
+
+    def _parse_dense(self, arr: np.ndarray, hdr, bit: int, seq):
+        """One picture of a GOP's bytes ``arr`` (its slices from ``bit``)
+        into dense FrameTensors, as :meth:`StreamParser.parse_picture`
+        parses it."""
+        ft = alloc_frame_tensors(seq, hdr.picture_type, hdr.temporal_ref,
+                                 hdr.full_pel, hdr.f_code, hdr.gop_time_ms,
+                                 yuva=self.parser.yuva)
+        with span("picture_parse", picture=self._pictures):
+            self._pictures += 1
+            self.parser._native.parse_picture_slices(
+                arr, bit, ft, seq.mb_width, seq.mb_height,
+                seq if self.parser.emit_sideband else None)
+        return ft
 
     def _parse_span(self, end: int) -> list:
         """Headers and pictures from ``read_pos`` up to ``end``."""
@@ -371,21 +499,36 @@ class Decoder(EventDispatcher):
     # ------------------------------------------------------------------
     # Reconstruction backends
 
-    def _decode(self, fts: list, use_gop_scan: bool) -> list:
-        """Parsed pictures -> their planes on ``device``, the reference
-        carried, with the quant matrices of the current sequence header
-        (the constants are rebuilt when a header, or a seek, brings other
-        matrices)."""
+    def _prepare(self, n_comps: int):
+        """The sequence header the next pictures decode with: the
+        constants of its quant matrices (rebuilt when a header, or a seek,
+        brings other matrices) and, at the start or after a seek, zero
+        reference planes."""
         seq = self.parser.seq
         if self._consts is None or self._consts.quant_key != quant_key(seq):
             self._consts = make_constants(seq, self.device)
         if self._refs is None:
             self._refs = zero_refs(seq.coded_height, seq.coded_width,
-                                   fts[0].n_comps, self.device)
+                                   n_comps, self.device)
+        return seq
+
+    def _decode(self, fts: list, use_gop_scan: bool) -> list:
+        """Parsed pictures -> their planes on ``device``, the reference
+        carried, with the quant matrices of the current sequence header."""
+        self._prepare(fts[0].n_comps)
         frames, self._refs = decode_group(
             fts, self._refs, self._consts, self.device,
             quirk=self.config.quirk_oddify_zeros, use_gop_scan=use_gop_scan,
             pool=self._pool, metrics=self.metrics)
+        return frames
+
+    def _decode_compact(self, gop: CompactGop) -> list:
+        """A GOP's compact parse -> its planes, as :meth:`_decode`."""
+        n_comps = self.meta.n_components
+        seq = self._prepare(n_comps)
+        frames, self._refs = decode_compact_group(
+            gop, self._refs, self._consts, self.device, seq.mb_height,
+            seq.mb_width, n_comps, self._pool, self.metrics)
         return frames
 
     def _reconstruct(self, ft: FrameTensors) -> DecodedFrame:

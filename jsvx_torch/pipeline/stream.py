@@ -13,7 +13,9 @@ a card up to 8, see README for what they hold at 1080p;
 ``program.CACHE.clear()`` frees them).  Stages are timed in ``Metrics``:
 ``parse``, ``pack``, ``h2d`` and ``device_decode`` (ends when the GOP's
 planes are complete); on a card the counters ``gop_program.captures``
-and ``gop_program.replays``.
+and ``gop_program.replays``.  :func:`decode_compact_group` takes a GOP
+parsed into the compact wire instead (the Decoder's GOP batch) through
+the same stages and the same kind of program.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..kernels.decode import (constants_per_seq, frame_comp_keys,
                               frame_to_device)
 from ..runtime.profiler import Metrics
 from .gop import frame_decoder, stack_device_frames, zero_refs
-from .packed_parse import BufferPool
+from .packed_parse import BufferPool, CompactGop
 from .program import CACHE, GopProgram, ProgramSet, program_key
 from .transcode import pack, synchronize
 
@@ -90,16 +92,61 @@ def _decode_unit(fts: list, refs: tuple, consts, device: torch.device,
         stacked = stack_device_frames([frame_to_device(ft) for ft in fts])
         spec, buf = pack(stacked, pool)
     h, w = stacked["y"]["levels"].shape[-2:]
-    key = program_key(spec, h // 16, w // 16, len(frame_comp_keys(stacked)),
-                      impl, quirk, consts, device, refs_in=True)
+    return _run_wire(spec, buf, len(fts), h // 16, w // 16,
+                     len(frame_comp_keys(stacked)), refs, consts, device,
+                     quirk, impl, pool, metrics, programs)
+
+
+def _run_wire(spec: tuple, buf, n: int, mb_h: int, mb_w: int, n_comps: int,
+              refs: tuple, consts, device: torch.device, quirk: bool,
+              impl: str, pool: BufferPool, metrics: Metrics,
+              programs: ProgramSet) -> tuple:
+    """The packed wire ``buf`` of ``n`` pictures and ``refs`` copied into
+    the program of its layout (``buf`` then goes back to ``pool``), and
+    the program run -> the (Y, Cb, Cr[, A]) stacks."""
+    key = program_key(spec, mb_h, mb_w, n_comps, impl, quirk, consts,
+                      device, refs_in=True)
     prog = programs.get(key, lambda: GopProgram(key, consts))
-    with metrics.timers.stage("h2d", pictures=len(fts)):
+    with metrics.timers.stage("h2d", pictures=n):
         prog.fill(pool.host_tensor(buf), refs)
     pool.release(buf)
-    with metrics.timers.stage("device_decode", pictures=len(fts)):
+    with metrics.timers.stage("device_decode", pictures=n):
         outs, _ = prog.run(None, metrics)
         synchronize(device)
     return outs
+
+
+def decode_compact_group(gop: CompactGop, refs: tuple, consts,
+                         device: torch.device, mb_h: int, mb_w: int,
+                         n_comps: int, pool: BufferPool,
+                         metrics: Metrics) -> tuple:
+    """:func:`decode_group` of one GOP parsed into the compact wire
+    (:func:`~jsvx_torch.pipeline.packed_parse.parse_gop_compact` into
+    ``pool``; never ``dirty``, never with the oddify-zeros quirk): the
+    same (planes per picture, next reference) from the same program
+    route, with the coded coefficients on the wire instead of dense
+    planes.  Its stacked dict is packed into one pooled buffer (stage
+    ``pack``; the parse's pooled buffers then go back to ``pool``), which
+    is copied with ``refs`` into the GOP program of its layout (key with
+    ``refs_in``, stage ``h2d``), whose body expands the coefficients on
+    the device (on a card one launch of the expansion kernel) and runs
+    the GOP loop (stage ``device_decode``).  The program is checked out
+    of the process cache for this call only."""
+    n = len(gop.hdrs)
+    with metrics.timers.stage("pack", pictures=n):
+        spec, buf = pack(gop.stacked, pool)
+    for b in gop.pooled:
+        pool.release(b)
+    gop.pooled = []
+    held = ProgramSet(CACHE)
+    try:
+        outs = _run_wire(spec, buf, n, mb_h, mb_w, n_comps, refs, consts,
+                         device, False, "fused", pool, metrics, held)
+    finally:
+        held.close()
+    metrics.count("frames", n)
+    return ([tuple(o[i] for o in outs) for i in range(n)],
+            tuple(o[-1] for o in outs))
 
 
 @dataclass

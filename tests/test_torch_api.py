@@ -575,17 +575,22 @@ def test_decoder_on_the_card_equals_the_cpu(label, tmp_path):
         for quirk, want in ((False, cpu), (True, quirked)):
             got, n = torch_card.counted(
                 lambda: _decoder_frames(data, dev, scan, quirk))
-            assert n == torch_card.want_counts(fused=len(want)), scan
+            # a GOP batch without the quirk ships the compact wire
+            compact = torch_card.compact_gops(data) if scan and not quirk \
+                else 0
+            assert n == torch_card.want_counts(fused=len(want),
+                                               expand=compact), scan
             torch_card.assert_frames_equal(got, want)
         tail = _decoder_frames(data, dev, scan, seek_gop=1)
         assert 0 < len(tail) < len(cpu)
         torch_card.assert_frames_equal(tail, cpu[len(cpu) - len(tail):])
 
-    (ev, rgb, planes, _), n = torch_card.counted(
+    (ev, rgb, planes, p), n = torch_card.counted(
         lambda: torch_card.play_rgb(data, dev))
     ev_cpu, rgb_cpu, _, _ = torch_card.play_rgb(data, "cpu")
     assert ev == ev_cpu and ev[0][0] == "loadstart" and ev[-1][0] == "ended"
-    assert n == torch_card.want_counts(fused=len(rgb), color=len(rgb))
+    assert n == torch_card.want_counts(fused=len(rgb), color=len(rgb),
+                                       expand=torch_card.compact_batches(p))
     torch_card.assert_frames_equal([(x,) for x in rgb],
                                    [(x,) for x in rgb_cpu])
     meta = walk_stream(data)[0]
@@ -608,6 +613,40 @@ def test_decoder_on_the_card_equals_the_cpu(label, tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["ended"] is True and report["frames_shown"] == len(cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["1080p-8-gops", "yuva-128x96"])
+def test_player_compact_batches_on_the_card_equal_the_dense(monkeypatch,
+                                                            label):
+    """The Player with RGB on the card: the GOP batches its Decoder ships
+    on the compact wire (one expansion launch each) give the RGB frames
+    of the dense wire bit for bit; after one playback, a second playback
+    of the stream captures no program (the Decoder's entry buckets are
+    sticky, so its keys recur)."""
+    from jsvx_torch.pipeline import program
+
+    dev = torch_card.card()
+    data = torch_card.stream(label)
+    program.CACHE.clear()
+    _, warm, _, _ = torch_card.play_rgb(data, dev)
+    (_, rgb, _, p), n = torch_card.counted(
+        lambda: torch_card.play_rgb(data, dev))
+    c = p.decoder.metrics.counters
+    assert c.get("gop_program.captures", 0) == 0
+    assert c["gop_program.replays"] > 0
+    batches = torch_card.compact_batches(p)
+    assert batches > 0 and c.get("decoder.gop_batches.dense", 0) == 0
+    assert n == torch_card.want_counts(fused=len(rgb), color=len(rgb),
+                                       expand=batches)
+    with monkeypatch.context() as mp:
+        mp.setattr(Decoder, "_compact_route", lambda self: False)
+        _, dense, _, pd = torch_card.play_rgb(data, dev)
+    assert pd.decoder.metrics.counters["decoder.gop_batches.dense"] == \
+        batches and torch_card.compact_batches(pd) == 0
+    for got in (rgb, warm):
+        torch_card.assert_frames_equal([(x,) for x in got],
+                                       [(x,) for x in dense])
 
 
 @pytest.mark.cuda

@@ -55,7 +55,7 @@ from jsvx_torch.kernels.decode import frame_to_device, make_constants
 from jsvx_torch.pipeline import program
 from jsvx_torch.pipeline.gop import (decode_gop, frame_at, frame_decoder,
                                      stack_device_frames, zero_refs)
-from jsvx_torch.pipeline.packed_parse import BufferPool
+from jsvx_torch.pipeline.packed_parse import BufferPool, walk_stream
 from jsvx_torch.pipeline.program import (GopProgram, ProgramCache,
                                          ProgramSet, program_key)
 from jsvx_torch.pipeline.stream import StreamDecoder, decode_group
@@ -576,7 +576,8 @@ def test_group_programs_replay_equals_eager_and_cpu_on_the_card(
     def runs(fn, kernels, n_frames=None):
         """``fn(device, metrics)`` on the CPU, then on the card, where
         each of ``kernels`` runs once a picture (``n_frames`` of them,
-        the CPU's frames unless given)."""
+        the CPU's frames unless given) -> the first card run's
+        counters."""
         cpu = fn("cpu", Metrics())
         program.CACHE.clear()
         card = []
@@ -595,8 +596,12 @@ def test_group_programs_replay_equals_eager_and_cpu_on_the_card(
         assert c2.get("gop_program.captures", 0) == 0
         assert c2.get("gop_program.replays", 0) == u2
         n = len(cpu) if n_frames is None else n_frames
-        want = torch_card.want_counts(**dict.fromkeys(kernels, n))
+        # the Decoder's GOP batches on the compact wire expand on the card
+        want = torch_card.want_counts(
+            **dict.fromkeys(kernels, n),
+            expand=c1.get("decoder.gop_batches.compact", 0))
         assert n1 == n2 == n3 == want, (n1, want)
+        return c1
 
     def stream_decoder(scan, impl):
         def fn(device, m):
@@ -635,7 +640,11 @@ def test_group_programs_replay_equals_eager_and_cpu_on_the_card(
         for impl in IMPLS:
             runs(stream_decoder(scan, impl),
                  ("fused",) if impl == "fused" else ("mc", "recon"))
-        runs(decoder(scan), ("fused",))
+        batches = runs(decoder(scan), ("fused",))
+        compact = torch_card.compact_gops(data) if scan and not quirk else 0
+        assert batches.get("decoder.gop_batches.compact", 0) == compact
+        assert batches.get("decoder.gop_batches.dense", 0) == (
+            len(walk_stream(data)[2]) - compact if scan else 0)
     runs(player, ("fused", "color"))
     runs(gops_parallel, ("fused",), sum(map(len, _batch(data)["gops"])))
     assert not any(p.loaded for p in program.CACHE.programs())

@@ -427,7 +427,13 @@ def test_per_gop_matrices_on_the_card_equal_the_cpu(monkeypatch, path, impl,
         cpu = _card_path(path, impl, quirk, data, "cpu", Metrics())
         _within_1lsb([f[:3] for f in card], want)
         assert _per_gop(card, cpu) == [(0, 0), (0, 0)], km
-        assert n == torch_card.want_counts(**launches), km
+        # the Decoder's GOP batches (key map only) expand on the card
+        batches = m.counters.get("decoder.gop_batches.compact", 0)
+        if path == "decoder_gop_batch":
+            assert batches == (2 if km else 0), km
+        expand = dict(expand=batches) if path in ("decoder_gop_batch",
+                                                  "player_rgb") else {}
+        assert n == torch_card.want_counts(**launches, **expand), km
         assert m.counters.get("gop_program.captures", 0) == len(asked) > 0
         assert len({k.quant for k in asked}) == 2
         if path == "player_rgb":
@@ -455,7 +461,8 @@ def test_decoder_seek_into_gop_1_on_the_card_equals_the_cpu(streams, oracle,
 
     got, n = torch_card.counted(lambda: seek(dev))
     cpu = seek("cpu")
-    assert n == torch_card.want_counts(fused=GOP + (GOP if scan else 1))
+    assert n == torch_card.want_counts(fused=GOP + (GOP if scan else 1),
+                                       expand=2 if scan else 0)
     _within_1lsb(oracle[True][:GOP] + got, oracle[True])
     assert _per_gop(oracle[True][:GOP] + got,
                     oracle[True][:GOP] + cpu)[1] == (0, 0)

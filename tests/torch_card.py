@@ -202,6 +202,13 @@ def compact_gops(data: bytes) -> int:
     return sum(compact for compact, _ in wires(data, "cpu"))
 
 
+def compact_batches(player) -> int:
+    """The GOP batches that ``player``'s Decoder shipped on the compact
+    wire: the expansion launches of its playback."""
+    return player.decoder.metrics.counters.get(
+        "decoder.gop_batches.compact", 0)
+
+
 def dense_gops(data: bytes, device) -> tuple:
     """(meta, seq, each GOP of ``data`` on ``device`` as the kernels take
     it: its wire, expanded by the plain version where compact)."""
